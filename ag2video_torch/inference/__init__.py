@@ -1,4 +1,5 @@
-"""Inference entry points."""
+"""Inference entry points: `generate`, `GenerationSession`, and the action
+builders of the compositionality API (`inference.actions`)."""
 
 from ag2video_torch.inference.generate import (  # noqa: F401
-    generate, make_inputs)
+    GenerationSession, generate, make_inputs)

@@ -1,19 +1,37 @@
-"""Generation (port of GenerationSession.generate,
-ag2video_tpu/inference/generate.py:77-103).
+"""Generation (port of ag2video_tpu/inference/generate.py).
 
 `generate(model, batch)` runs the reference's test path,
 `model(..., test_mode=True, use_gt=False)`: both layout rollouts from the
 first frame's boxes, then autoregressive frame synthesis from the predicted
-boxes. Loading orbax checkpoints is not ported yet; weights come from
-`weights.from_flax` or the model's seeded init.
+boxes (or from the ground-truth boxes with use_gt=True).
+
+`GenerationSession(run_dir)` renders a trained run: it reads the run's
+`run_args.json`, builds the model on the card (or on `device`), and `load()`
+reads the run's exported weights, an `itr_<t>.npz` of the flax variables
+(torch_tools/export_run_weights.py writes it from the JAX run's orbax
+checkpoint). Its `generate` returns numpy arrays as the JAX session's does;
+`run_action_sweep` and `save_test_outputs` write the same file tree as the
+JAX session's methods.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+import glob
+import logging
+import os
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ag2video_torch.config import Config
+from ag2video_torch.inference import actions as action_lib
+from ag2video_torch.models.meta import AG2VideoModel
+from ag2video_torch.utils.vis import plot_vid, save_gif, save_video_pickle
+from ag2video_torch.weights import from_flax, load_flax_npz
+
+log = logging.getLogger(__name__)
 
 _DTYPES = {"imgs": torch.float32, "objs": torch.long, "boxes": torch.float32,
            "triplets": torch.long, "actions": torch.float32}
@@ -46,15 +64,17 @@ def make_inputs(cfg, vocab: Dict[str, Any], B: int, T: int,
 
 
 def generate(model: torch.nn.Module, batch: Any,
-             actions: Optional[np.ndarray] = None, layout_only: bool = False
+             actions: Optional[np.ndarray] = None, use_gt: bool = False,
+             layout_only: bool = False
              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Generate videos -> (imgs_pred (B, T, H, W, 3) | None,
     boxes_pred (B, T, O, 4)), as tensors on the model's device.
 
     `batch` is a collate `Batch` or a mapping of its arrays. `actions`
     (A, 7) or (B, A, 7) overrides the batch's actions, padded or trimmed to
-    the static action cap as the JAX session does. layout_only=True returns
-    the box rollout only and skips pixel synthesis.
+    the static action cap as the JAX session does. use_gt=True renders from
+    the ground-truth boxes (the reference's --use_test mode);
+    layout_only=True returns the box rollout only and skips pixel synthesis.
     """
     b: Mapping[str, Any] = batch.as_dict() if hasattr(batch, "as_dict") \
         else batch
@@ -69,11 +89,135 @@ def generate(model: torch.nn.Module, batch: Any,
         padded[:, :min(a.shape[1], cap)] = a[:, :cap]
         b = dict(b, actions=padded)
     dev = next(model.parameters()).device
-    t = {k: torch.as_tensor(b[k]).to(dev, _DTYPES[k]) for k in _DTYPES}
+    t = {k: torch.as_tensor(np.asarray(b[k])).to(dev, _DTYPES[k])
+         for k in _DTYPES}
     model.eval()
     with torch.no_grad():
         out = model(t["imgs"], t["objs"], t["triplets"], t["actions"],
-                    t["boxes"], test_mode=True, graph_only=layout_only)
+                    t["boxes"], test_mode=True, use_gt=use_gt,
+                    graph_only=layout_only)
     if layout_only:
         return None, out["boxes_pred"]
     return out["imgs_pred"], out["boxes_pred"]
+
+
+def latest_weights(run_dir: str) -> str:
+    """The newest `itr_<t>.npz` in `run_dir`."""
+    best, best_t = None, -1
+    for p in glob.glob(os.path.join(run_dir, "itr_*.npz")):
+        m = re.match(r"itr_(\d+)\.npz$", os.path.basename(p))
+        if m and int(m.group(1)) > best_t:
+            best, best_t = p, int(m.group(1))
+    if best is None:
+        raise FileNotFoundError(
+            f"no itr_*.npz weights under {run_dir}: export the run's "
+            f"checkpoint with torch_tools/export_run_weights.py")
+    return best
+
+
+class GenerationSession:
+    """A trained run, rendered by the port (see the module docstring)."""
+
+    def __init__(self, run_dir: str, checkpoint: Optional[str] = None,
+                 overrides: Optional[Dict[str, Any]] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        """checkpoint: an `itr_<t>.npz`, or a directory whose newest one is
+        taken (default: `run_dir`). device: as AG2VideoModel's, the CUDA
+        card when None."""
+        cfg, vocab = Config.load_run_args(run_dir)
+        if overrides:
+            cfg = cfg.replace(**overrides)
+        if vocab is None:
+            raise ValueError(f"{run_dir}/run_args.json must embed the vocab")
+        self.cfg = cfg
+        self.vocab = vocab
+        self.model = AG2VideoModel(cfg, vocab, device=device)
+        self._checkpoint = checkpoint or run_dir
+        self._loaded = False
+
+    def load(self) -> "GenerationSession":
+        """Read the weights strictly (every JAX leaf used, every port tensor
+        filled, like the reference's load_state_dict(strict=True))."""
+        path = self._checkpoint
+        if os.path.isdir(path):
+            path = latest_weights(path)
+        load_flax_npz(path, self.model)
+        self._loaded = True
+        log.info("loaded %s", path)
+        return self
+
+    def load_variables(self, variables: Mapping[str, Any]
+                       ) -> "GenerationSession":
+        """Load flax-layout variables ({'params', 'batch_stats',
+        'spectral'}), as the JAX session's `load_variables` takes them."""
+        from_flax(variables, self.model)
+        self._loaded = True
+        return self
+
+    def generate(self, batch: Any, actions: Optional[np.ndarray] = None,
+                 use_gt: bool = False, layout_only: bool = False
+                 ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+        """`generate` above, returning numpy arrays: (imgs_pred | None,
+        boxes_pred)."""
+        if not self._loaded:
+            raise RuntimeError("call load() or load_variables() first")
+        imgs, boxes = generate(self.model, batch, actions=actions,
+                               use_gt=use_gt, layout_only=layout_only)
+        return (None if imgs is None else imgs.cpu().numpy(),
+                boxes.cpu().numpy())
+
+    def run_action_sweep(self, batch: Any, out_dir: str,
+                         dataset: Optional[str] = None) -> None:
+        """The reference's --save_actions sweep (test.py:205-279): for each
+        builder, generate the action, a 'before' timing variant, an 'after'
+        timing variant, and save the GT clip."""
+        dataset = dataset or self.cfg.dataset
+        if dataset == "cater":
+            builders = action_lib.cater_execute_set(self.vocab)
+        else:
+            slide = self.vocab["action_name_to_idx"].get("_slide", 1)
+            builders = [{
+                "action_name": "slide",
+                "action_func": lambda objs, vids, boxes:
+                    action_lib.single(0, slide, x_end=0.1, y_end=0.1),
+            }]
+        vid_id = batch.video_ids[0]
+        for spec in builders:
+            name = spec["action_name"]
+            acts = spec["action_func"](batch.objs, batch.imgs, batch.boxes)
+            if name == "converge":
+                n_real = action_lib.real_object_count(batch.objs)
+                before = action_lib.converge_before(n_real, int(acts[0, 1]))
+                after = action_lib.converge_after(n_real, int(acts[0, 1]))
+            else:
+                before = action_lib.shift_before(acts)
+                after = action_lib.shift_after(acts)
+            variants = {
+                os.path.join("action_accuracy", name): acts,
+                os.path.join("action_timing", name, "before"): before,
+                os.path.join("action_timing", name, "after"): after,
+            }
+            for rel, a in variants.items():
+                imgs_pred, boxes_pred = self.generate(batch, actions=a)
+                fn = os.path.join(out_dir, rel, f"{vid_id}.gif")
+                save_gif(plot_vid(imgs_pred[0], boxes_pred[0]), fn)
+                log.info("wrote %s", fn)
+            gt_fn = os.path.join(out_dir, "gt_action", name, f"{vid_id}.gif")
+            save_gif(plot_vid(np.asarray(batch.imgs)[0]), gt_fn)
+
+    def save_test_outputs(self, batch: Any, out_dir: str,
+                          use_gt: bool = True) -> None:
+        """The reference's --save_test path (test.py:281-299): a gif and an
+        {'image','box'} pkl per video; use_gt follows --use_test (default 1
+        upstream: generate from GT boxes)."""
+        imgs_pred, boxes_pred = self.generate(batch, use_gt=use_gt)
+        save_p = os.path.join(out_dir, "test")
+        objs = np.asarray(batch.objs)
+        for i, vid_id in enumerate(batch.video_ids):
+            save_gif(plot_vid(imgs_pred[i]),
+                     os.path.join(save_p, f"{vid_id}.gif"))
+            # Real objects occupy 0..n_real-1, the dummy sits at n_real and
+            # padding after: keep the real ones (at least one row).
+            n_real = int((objs[i, :, 0] != 0).sum())
+            save_video_pickle(os.path.join(save_p, f"{vid_id}.pkl"),
+                              imgs_pred[i], boxes_pred[i][:, :max(n_real, 1)])

@@ -4,7 +4,9 @@ Encoder (one stride-1 + n_downsample_F stride-2 NormConvs) -> n_blocks_F
 residual blocks -> nearest-upsample decoder; heads: flow (2 ch, scaled by
 flow_multiplier, returned fp32) and weight (1 ch sigmoid, unused by the
 generator). The stride-2 convs pad flax-'SAME' style, (0, 1) on even sizes
-(layers.conv2d_nhwc).
+(layers.conv2d_nhwc). With skip_first, the stride-1 NormConv `down_0` does
+not exist: the caller applied the first conv and its leaky-relu (the
+factorized frontend's `flow_down_0`) and passes the (B, H, W, nff) result.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class FlowsGenerator(nn.Module):
     def __init__(self, in_features: int, nff: int = 32, n_blocks_F: int = 6,
                  n_downsample_F: int = 3, norm_F: str = "spectralsyncbatch",
                  flow_multiplier: float = 20.0, flow_deconv: bool = False,
-                 nf_max: int = 1024, dtype: Optional[torch.dtype] = None):
+                 nf_max: int = 1024, skip_first: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if flow_deconv:
             raise NotImplementedError(
@@ -63,7 +66,9 @@ class FlowsGenerator(nn.Module):
         ch = [min(nf_max, nff * (2 ** i)) for i in range(nd + 1)]
         self.nd, self.n_blocks = nd, n_blocks_F
         self.flow_multiplier = flow_multiplier
-        self.down_0 = NormConv(in_features, nff, norm_F, 3, dtype=dtype)
+        self.skip_first = skip_first
+        if not skip_first:
+            self.down_0 = NormConv(in_features, nff, norm_F, 3, dtype=dtype)
         for i in range(nd):
             setattr(self, f"down_{i + 1}",
                     NormConv(ch[i], ch[i + 1], norm_F, 3, stride=2,
@@ -77,8 +82,10 @@ class FlowsGenerator(nn.Module):
         self.conv_w = Conv(ch[0], 1, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, H, W, C) -> (weight (B, H, W, 1), flow (B, H, W, 2) fp32)."""
-        x = leaky_relu_02(self.down_0(x))
+        """(B, H, W, C) -> (weight (B, H, W, 1), flow (B, H, W, 2) fp32);
+        with skip_first, x is the (B, H, W, nff) output of the first conv."""
+        if not self.skip_first:
+            x = leaky_relu_02(self.down_0(x))
         for i in range(self.nd):
             x = leaky_relu_02(getattr(self, f"down_{i + 1}")(x))
         for i in range(self.n_blocks):

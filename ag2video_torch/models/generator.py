@@ -1,14 +1,24 @@
 """Layout -> video generator (port of ag2video_tpu/models/generator.py).
 
-Ported path: the dense frontend (`factorized_frontend=False`) in
-autoregressive mode (test-time generation). All B*T layouts are rasterized
-by one `boxes_to_layout_batch` call (the CUDA kernel on the card); then, per
-generated frame, the window of the last n_frames_G layouts and the previous
-frame(s) feed the flow network, the previous frame is warped by the flow,
-[layout window, warped frame] goes through `conv_dim_in` to semantic_nc
-channels, and the SPADE generator's output is added onto the warped frame.
-The JAX package's `nn.scan` over frames is a Python loop over one shared
-`frame_step`.
+Ported: autoregressive mode (test-time generation) with either frontend.
+Per generated frame, the window of the last n_frames_G layouts and the
+previous frame(s) feed the flow network, the previous frame is warped by the
+flow, the layout window and the warped frame go through `conv_dim_in` to
+semantic_nc channels, and the SPADE generator's output is added onto the
+warped frame. The JAX package's `nn.scan` over frames is a Python loop over
+one shared `frame_step`.
+
+* Factorized frontend (`factorized_frontend=True`, the default config): the
+  per-object box coverage maps are computed once (`box_coverage`, cast to
+  the vecs' dtype) and the two frontend convs, `flow_down_0` (in front of a
+  `FlowsGenerator(skip_first=True)`) and `conv_dim_in`, consume each
+  frame's (coverage, vecs) window in the object basis (models/factorized.py).
+  Nothing is rasterized.
+* Dense frontend (`factorized_frontend=False`): all B*T layouts are
+  rasterized by one `boxes_to_layout_batch` call (the CUDA kernel on the
+  card) and each frame's window is their channel stack.
+
+Teacher-forced generation belongs to the training slice and raises.
 """
 
 from __future__ import annotations
@@ -19,11 +29,12 @@ import torch
 from torch import nn
 
 from ag2video_torch.models.embeddings import AttributeEmbeddings
+from ag2video_torch.models.factorized import FactorizedNormConv
 from ag2video_torch.models.flow import FlowsGenerator
 from ag2video_torch.models.layers import leaky_relu_02
 from ag2video_torch.models.normalization import NormConv
 from ag2video_torch.models.spade import SPADEGenerator
-from ag2video_torch.ops.rasterize import boxes_to_layout_batch
+from ag2video_torch.ops.rasterize import box_coverage, boxes_to_layout_batch
 from ag2video_torch.ops.warp import resample
 
 # Appearance-embedding width fed to the rasterizer (reference generator.py:16).
@@ -39,38 +50,59 @@ def remove_dummy_objects_mask(objs: torch.Tensor) -> torch.Tensor:
 
 
 class _FrameStep(nn.Module):
-    """One generated frame, dense frontend:
-    (prev frames (B, H, W, ncond*3), layout window (B, H, W, nF*Dseg)) ->
-    (new prev frames, (frame, flow, conf))."""
+    """One generated frame: (prev frames (B, H, W, ncond*3), window) ->
+    (new prev frames, (frame, flow, conf)). The window is the layout stack
+    (B, H, W, nF*Dseg) on the dense frontend and (coverage (B, nF, O, H, W),
+    vecs (B, nF, O, Dseg)) on the factorized one."""
 
     def __init__(self, seg_channels: int, semantic_nc: int, n_frames_G: int,
                  ngf: int, norm_G: str, norm_F: str,
                  num_upsampling_layers: str, aspect_ratio: float, nff: int,
                  n_blocks_F: int, n_downsample_F: int, flow_multiplier: float,
-                 flow_deconv: bool, dtype: Optional[torch.dtype] = None):
+                 flow_deconv: bool, factorized: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         ncond = n_frames_G - 1
         self.n_frames_G = n_frames_G
+        self.factorized = factorized
         win = n_frames_G * seg_channels
+        if factorized:
+            self.flow_down_0 = FactorizedNormConv(
+                nff, norm_F, seg_channels, n_frames_G, 3 * ncond, dtype=dtype)
         self.flows_network = FlowsGenerator(
             win + 3 * ncond, nff, n_blocks_F, n_downsample_F, norm_F,
-            flow_multiplier, flow_deconv, dtype=dtype)
-        self.conv_dim_in = NormConv(win + 3, semantic_nc, norm_F, 3,
-                                    dtype=dtype)
+            flow_multiplier, flow_deconv, skip_first=factorized, dtype=dtype)
+        if factorized:
+            self.conv_dim_in = FactorizedNormConv(
+                semantic_nc, norm_F, seg_channels, n_frames_G, 3, dtype=dtype)
+        else:
+            self.conv_dim_in = NormConv(win + 3, semantic_nc, norm_F, 3,
+                                        dtype=dtype)
         self.netG = SPADEGenerator(semantic_nc, ngf, norm_G,
                                    num_upsampling_layers, aspect_ratio, dtype)
 
-    def forward(self, imgs_prev: torch.Tensor, seg_win: torch.Tensor):
-        input_flow = torch.cat([seg_win, imgs_prev.to(seg_win.dtype)], dim=-1)
-        _weight, flow = self.flows_network(input_flow)
+    def forward(self, imgs_prev: torch.Tensor, window):
+        if self.factorized:
+            cov_win, vecs_win = window
+            feat = self.flow_down_0(cov_win, vecs_win, imgs_prev)
+            _weight, flow = self.flows_network(leaky_relu_02(feat))
+        else:
+            input_flow = torch.cat([window, imgs_prev.to(window.dtype)],
+                                   dim=-1)
+            _weight, flow = self.flows_network(input_flow)
 
         prev_last = imgs_prev[..., -3:].float()
         img_prev_warp = resample(prev_last, flow)
         err = ((prev_last - img_prev_warp) ** 2).sum(-1, keepdim=True)
         conf = (err < CONF_THRESHOLD).float()
 
-        x = torch.cat([seg_win, img_prev_warp.to(seg_win.dtype)], dim=-1)
-        x = leaky_relu_02(self.conv_dim_in(x))
+        if self.factorized:
+            x = self.conv_dim_in(cov_win, vecs_win,
+                                 img_prev_warp.to(cov_win.dtype))
+        else:
+            x = self.conv_dim_in(
+                torch.cat([window, img_prev_warp.to(window.dtype)], dim=-1))
+        x = leaky_relu_02(x)
         img_raw = self.netG(x).float() + img_prev_warp
 
         if self.n_frames_G - 1 > 1:
@@ -94,14 +126,11 @@ class Layout2VidGenerator(nn.Module):
                  factorized_frontend: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if factorized_frontend:
-            raise NotImplementedError(
-                "factorized_frontend=True is not ported yet: ROADMAP "
-                "'Slices of the port' item 2 (the factorized frontend)")
         num_attr = len(vocab["attributes"])
         cards = {a: max(t.values()) + 1
                  for a, t in vocab["attributes"].items()}
         self.n_frames_G = n_frames_G
+        self.factorized_frontend = factorized_frontend
         # 'auto' (the CUDA kernel on the card) or 'plain' (the closed form,
         # set only to use it as the kernel's oracle); see ops/rasterize.py.
         self.rasterizer_backend = "auto"
@@ -111,7 +140,8 @@ class Layout2VidGenerator(nn.Module):
         self.frame_step = _FrameStep(
             seg_channels, semantic_nc, n_frames_G, ngf, norm_G, norm_F,
             num_upsampling_layers, aspect_ratio, nff, n_blocks_F,
-            n_downsample_F, flow_multiplier, flow_deconv, dtype)
+            n_downsample_F, flow_multiplier, flow_deconv,
+            factorized_frontend, dtype)
 
     def forward(self, imgs_gt: torch.Tensor, objs: torch.Tensor,
                 obj_vecs: torch.Tensor, layout_boxes: torch.Tensor,
@@ -134,15 +164,26 @@ class Layout2VidGenerator(nn.Module):
         vecs = torch.cat([att_t, obj_vecs.to(att.dtype)], dim=-1)
         obj_mask = remove_dummy_objects_mask(objs)
         mask_bt = obj_mask[:, None].expand(layout_boxes.shape[:-1])
-        seg = boxes_to_layout_batch(vecs, layout_boxes, H, W, mask=mask_bt,
-                                    backend=self.rasterizer_backend)
+        if self.factorized_frontend:
+            # Coverage in the vecs' dtype before the contraction, as the
+            # JAX package casts it (bf16 in the bf16 config).
+            cov = box_coverage(layout_boxes, H, W, mask_bt).to(vecs.dtype)
+        else:
+            seg = boxes_to_layout_batch(vecs, layout_boxes, H, W,
+                                        mask=mask_bt,
+                                        backend=self.rasterizer_backend)
 
-        # Autoregressive loop; the window ending at frame t + ncond is the
-        # channel stack of seg[t .. t + ncond] (reference seg_t, :66).
+        # Autoregressive loop over the windows of frames t .. t + ncond
+        # (reference seg_t, :66): the channel stack of those layouts, or
+        # their (coverage, vecs) on the factorized frontend.
         prev = torch.cat([imgs_gt[:, i] for i in range(ncond)], dim=-1)
         imgs, flows, confs = [], [], []
         for t in range(T - ncond):
-            win = torch.cat([seg[:, t + i] for i in range(ncond + 1)], dim=-1)
+            if self.factorized_frontend:
+                win = (cov[:, t:t + ncond + 1], vecs[:, t:t + ncond + 1])
+            else:
+                win = torch.cat([seg[:, t + i] for i in range(ncond + 1)],
+                                dim=-1)
             prev, (img, flow, conf) = self.frame_step(prev, win)
             imgs.append(img)
             flows.append(flow)

@@ -1,0 +1,63 @@
+"""Visualization artifacts (port of ag2video_tpu/utils/vis.py, held equal
+to it by tests/test_torch_copies.py): frames with boxes drawn, gifs, and the
+{'image','box'} pickle consumed by the LPIPS pair scorer. `imageio` is
+imported only inside `save_gif`, so nothing else here needs it."""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ag2video_torch.data.transforms import denormalize
+
+
+def draw_boxes(frame: np.ndarray, boxes: np.ndarray,
+               color=(1.0, 1.0, 1.0), skip_dummy: bool = True) -> np.ndarray:
+    """Draw xywh boxes ([0,1] coords) as 1px rectangles on an HxWx3 frame."""
+    H, W, _ = frame.shape
+    out = frame.copy()
+    for b in boxes:
+        x0, y0, w, h = b
+        if skip_dummy and (w >= 0.999 and h >= 0.999):
+            continue  # whole-image dummy box
+        if w <= 0 or h <= 0:
+            continue
+        xa = int(np.clip(x0 * W, 0, W - 1))
+        ya = int(np.clip(y0 * H, 0, H - 1))
+        xb = int(np.clip((x0 + w) * W, 0, W - 1))
+        yb = int(np.clip((y0 + h) * H, 0, H - 1))
+        out[ya, xa:xb + 1] = color
+        out[yb, xa:xb + 1] = color
+        out[ya:yb + 1, xa] = color
+        out[ya:yb + 1, xb] = color
+    return out
+
+
+def plot_vid(video: np.ndarray, boxes: Optional[np.ndarray] = None) -> list:
+    """ImageNet-normalized (T,H,W,3) -> list of uint8 frames, optionally with
+    boxes drawn (reference plot_vid, models/vis.py:29-44)."""
+    frames = []
+    for t in range(video.shape[0]):
+        f = denormalize(video[t])
+        if boxes is not None:
+            f = draw_boxes(f, boxes[t])
+        frames.append((f * 255).astype(np.uint8))
+    return frames
+
+
+def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 4) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    import imageio
+    imageio.mimsave(path, list(frames), duration=1000 / fps, loop=0)
+    return path
+
+
+def save_video_pickle(path: str, video: np.ndarray, boxes: np.ndarray) -> str:
+    """The reference's {'image','box'} pkl artifact (scripts/test.py:291-299)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"image": video, "box": boxes}, f)
+    return path

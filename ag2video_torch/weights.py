@@ -12,6 +12,7 @@ name:
               .../scale, .../bias   -> .../weight, .../bias   (BatchNorm)
   batch_stats .../mean, .../var     -> .../running_mean, .../running_var
   spectral    X/SpectralNorm_0/conv/kernel/{u,sigma} -> X.spectral.{u,sigma}
+              X/u (FactorizedNormConv's own)       -> X.u
 
 Under flax's `nn.scan` the `step` / `frame_step` parameters carry no time
 axis, so they map one to one. The SPADE blocks keep the three conditioning
@@ -21,7 +22,11 @@ the JAX block does (spade.py:75-87).
 `init_params(model, seed)` draws the port's own weights with flax's
 initialisers by name (lecun-normal kernels, kaiming-normal in the graph
 convs, zero biases, N(0, 1/features) embeddings, unit BN scale and
-variance, N(0, 1) spectral `u`) from one `torch.Generator`.
+variance, N(0, 1) spectral `u`, N(0, 1/features) factorized `u`) from one
+`torch.Generator`.
+
+`load_flax_npz(path, model)` loads an exported run's weights, an .npz in
+the layout of flax_npz.py (written by torch_tools/export_run_weights.py).
 """
 
 from __future__ import annotations
@@ -32,19 +37,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ag2video_torch.flax_npz import flatten_tree, read_flax_npz
+
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "embedding": "weight",
                  "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-
-
-def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
-    for k, v in tree.items():
-        # flax names spectral state 'conv/kernel/u': one key with slashes.
-        key = prefix + tuple(str(k).split("/"))
-        if isinstance(v, Mapping):
-            yield from _flatten(v, key)
-        else:
-            yield key, v
 
 
 def flax_to_state_dict(
@@ -52,7 +49,7 @@ def flax_to_state_dict(
     """Flax variables -> {port state_dict key: tensor} (no model needed)."""
     out: Dict[str, torch.Tensor] = {}
     for col, tree in variables.items():
-        for path, leaf in _flatten(tree):
+        for path, leaf in flatten_tree(tree):
             arr = np.array(leaf, dtype=np.float32)
             *mod, name = path
             if col == "params":
@@ -71,14 +68,22 @@ def flax_to_state_dict(
             elif col == "spectral":
                 cut = next((i for i, p in enumerate(mod)
                             if p.startswith("SpectralNorm")), None)
-                if cut is None or name not in ("u", "sigma") or \
+                if cut is None and name == "u":
+                    key = mod + ["u"]  # factorized.spectral_normalize's u
+                elif cut is None or name not in ("u", "sigma") or \
                         mod[cut + 1:] != ["conv", "kernel"]:
                     raise KeyError(f"unknown spectral leaf {'/'.join(path)}")
-                key = mod[:cut] + ["spectral", name]
+                else:
+                    key = mod[:cut] + ["spectral", name]
             else:
                 raise KeyError(f"unknown variable collection {col!r}")
             out[".".join(key)] = torch.from_numpy(np.array(arr, order="C"))
     return out
+
+
+def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
+    """Load an .npz of flax variables (flax_npz.py) into `model` strictly."""
+    return from_flax(read_flax_npz(path), model)
 
 
 def from_flax(variables: Mapping[str, Any], model: nn.Module) -> nn.Module:

@@ -17,7 +17,16 @@ Phases, each printing one line (any failure raises and exits nonzero):
    the plain rasterizer on the card, and on the CPU: the frames must agree;
 5. the dense-frontend CATER-256x256 generation path at full width (B=2,
    bf16, seeded random weights) through `inference.generate`: finite
-   frames, rasterizer launched by the kernel only, frames/s and peak memory.
+   frames, rasterizer launched by the kernel only, frames/s and peak memory;
+6. at 64x64 / 32x32 in fp32 on the card: (a) the factorized-frontend
+   generator agrees with the dense one given the same frontend kernels
+   (spectral norm off); (b) a `GenerationSession` loaded from
+   torch_tools/data/reference_factorized_32.npz reproduces the JAX
+   package's outputs stored in that file;
+7. the default configuration (factorized frontend) at full width,
+   CATER-256x256, B=2, bf16, seeded random weights, through
+   `inference.generate`: finite frames, no rasterizer call of either kind,
+   frames/s and peak memory in phase 5's format.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -25,20 +34,26 @@ Then a JSON line describing each kernel and, last, the device line.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from ag2video_torch import Config, get_vocab
-from ag2video_torch.inference import generate, make_inputs
+from ag2video_torch.flax_npz import COLLECTIONS
+from ag2video_torch.inference import GenerationSession, generate, make_inputs
 from ag2video_torch.models import AG2VideoModel
+from ag2video_torch.models.generator import Layout2VidGenerator
 from ag2video_torch.ops._kernels import rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
+from ag2video_torch.weights import init_params
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
              max_triplets=6, max_actions=2, embedding_dim=16, gconv_dim=16,
@@ -54,6 +69,16 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-5)
 # rounding only; the card vs the CPU also differ in conv summation order.
 MODEL_TOL_CARD = dict(rtol=1e-4, atol=1e-4)
 MODEL_TOL_CPU = dict(rtol=1e-3, atol=1e-3)
+# The generator pair of phase 6a (the JAX package's
+# tests/test_factorized_generator.py): spectral norm off, so the two
+# frontends share their kernels exactly.
+PAIR_GEN = dict(semantic_nc=64, ngf=4, nff=8, n_blocks_F=1, n_downsample_F=1,
+                norm_F="syncbatch", norm_G="spadesyncbatch3x3")
+# That test's own bound: the two frontends sum 9*1027 products in other
+# orders, and the SPADE stack and the frame loop carry the difference on.
+PAIR_TOL = dict(rtol=1e-3, atol=1e-4)
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "torch_tools", "data", "reference_factorized_32.npz")
 
 
 def check_close(name, got, ref, tol):
@@ -250,9 +275,10 @@ def phase_small_model():
           f"the card {e_card:.3e}, card vs CPU {e_cpu:.3e}")
 
 
-def phase_full():
+def phase_full(factorized):
+    """Phase 5 (dense frontend) or 7 (factorized, the default config)."""
     vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", factorized_frontend=False,
+    cfg = Config(dataset="cater", factorized_frontend=factorized,
                  **FULL).derive(vocab)
     B, T = 2, cfg.frames_per_action
     H, W = cfg.image_size
@@ -271,7 +297,9 @@ def phase_full():
     if not bool(torch.isfinite(imgs).all()) or \
             float(imgs.abs().max()) > 1e3:
         raise AssertionError("non-finite or runaway generated frames")
-    if launches == 0 or plain != 0:
+    # The dense path rasterizes with the kernel only; the factorized path
+    # never rasterizes, so any call there means the dense path ran.
+    if plain != 0 or (launches != 0 if factorized else launches == 0):
         raise AssertionError(f"rasterizer kernel launches {launches}, "
                              f"plain calls {plain}")
 
@@ -286,12 +314,113 @@ def phase_full():
     dt = (time.perf_counter() - t0) / runs
     frames = B * (T - (cfg.n_frames_G - 1))
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 5 CATER 256x256 dense frontend B={B} T={T} bf16: "
+    print(f"phase {7 if factorized else 5} CATER 256x256 "
+          f"{'factorized' if factorized else 'dense'} frontend B={B} T={T} "
+          f"bf16: "
           f"imgs_pred {tuple(imgs.shape)} finite; rasterizer kernel "
           f"launches {launches}, plain calls {plain}; {frames / dt:.2f} "
           f"generated frames/s ({dt * 1e3:.1f} ms per call, mean of {runs}); "
           f"peak memory {peak / 2**30:.2f} GiB; model setup {setup_s:.1f} s")
     return launches
+
+
+def factorized_state_from_dense(state):
+    """A dense-frontend generator's state dict in the factorized layout:
+    flows_network.down_0 -> flow_down_0, conv_dim_in.conv -> conv_dim_in."""
+    renames = (("frame_step.flows_network.down_0.conv.weight",
+                "frame_step.flow_down_0.weight"),
+               ("frame_step.flows_network.down_0.norm.",
+                "frame_step.flow_down_0.norm."),
+               ("frame_step.conv_dim_in.conv.weight",
+                "frame_step.conv_dim_in.weight"))
+    out = {}
+    for k, v in state.items():
+        for old, new in renames:
+            k = k.replace(old, new)
+        out[k] = v
+    return out
+
+
+def dense_and_factorized(device, H, seed=0):
+    """Phase 6a's pair on `device`: the dense generator with seeded weights
+    and the factorized one loaded with the same kernels, run on one seeded
+    batch (B=2, T=3, O=4) -> {False: outputs, True: outputs}."""
+    vocab = get_vocab("cater")
+    dense = init_params(Layout2VidGenerator(vocab, **PAIR_GEN), seed)
+    fact = Layout2VidGenerator(vocab, factorized_frontend=True, **PAIR_GEN)
+    fact.load_state_dict(factorized_state_from_dense(dense.state_dict()),
+                         strict=True)
+    rng = np.random.RandomState(seed)
+    objs = rng.randint(1, 3, (2, 4, 4))
+    objs[:, -1] = 0
+    args = [torch.from_numpy(a).to(device) for a in (
+        rng.randn(2, 3, H, H, 3).astype(np.float32), objs,
+        rng.randn(2, 3, 4, 128).astype(np.float32),
+        rng.uniform(0.1, 0.5, (2, 3, 4, 4)).astype(np.float32))]
+    out = {}
+    for factorized, gen in ((False, dense), (True, fact)):
+        with torch.no_grad():
+            out[factorized] = gen.to(device).eval()(*args)
+    return out
+
+
+def load_reference():
+    """(Config, vocab, inputs, JAX outputs, variables as flat arrays) of
+    torch_tools/data/reference_factorized_32.npz."""
+    with np.load(REFERENCE) as ref:
+        arrays = {k: ref[k] for k in ref.files}
+    cfg = Config.from_dict(json.loads(str(arrays.pop("config"))))
+    part = lambda p: {k.split("/", 1)[1]: v for k, v in arrays.items()
+                      if k.split("/", 1)[0] == p}
+    flat = {k: v for k, v in arrays.items() if k.split("/")[0] in COLLECTIONS}
+    return cfg, get_vocab(cfg.dataset), part("input"), part("output"), flat
+
+
+def phase_factorized():
+    out = dense_and_factorized("cuda", 64)
+    e_pair = max(check_close(f"64x64 factorized vs dense {name}",
+                             out[True][i], out[False][i], PAIR_TOL)
+                 for i, name in ((0, "imgs"), (1, "flows")))
+    if not torch.equal(out[True][2], out[False][2]):
+        raise AssertionError("factorized vs dense conf maps differ")
+
+    cfg, vocab, inputs, want, flat = load_reference()
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg.save_run_args(run_dir, vocab)
+        np.savez(os.path.join(run_dir, "itr_0.npz"), **flat)
+        session = GenerationSession(run_dir).load()  # on the card
+    if next(session.model.parameters()).device.type != "cuda":
+        raise AssertionError("the session's model is not on the card")
+    imgs, boxes = session.generate(inputs)
+    t = {k: torch.as_tensor(inputs[k]).cuda() for k in inputs}
+    with torch.no_grad():
+        got = session.model(t["imgs"], t["objs"].long(), t["triplets"].long(),
+                            t["actions"], t["boxes"], test_mode=True)
+    errs = {"imgs_pred": check_close("reference imgs_pred (session)",
+                                     torch.from_numpy(imgs),
+                                     torch.from_numpy(want["imgs_pred"]),
+                                     MODEL_TOL_CPU),
+            "boxes_pred": check_close("reference boxes_pred (session)",
+                                      torch.from_numpy(boxes),
+                                      torch.from_numpy(want["boxes_pred"]),
+                                      MODEL_TOL_CPU),
+            "flows_pred": check_close("reference flows_pred",
+                                      got["flows_pred"].cpu(),
+                                      torch.from_numpy(want["flows_pred"]),
+                                      MODEL_TOL_CPU)}
+    # conf is a hard threshold (err < 0.02): a pixel within rounding of it
+    # may flip, so at most 0.1% of pixels may differ.
+    flipped = float((got["conf_pred"].cpu().numpy() !=
+                     want["conf_pred"]).mean())
+    if flipped > 1e-3:
+        raise AssertionError(f"reference conf_pred: {flipped:.2%} differ")
+    print(f"phase 6 (a) 64x64 fp32 factorized vs dense generator, same "
+          f"kernels, spectral off: max|diff| {e_pair:.3e}, conf equal; "
+          f"(b) GenerationSession on the card from "
+          f"torch_tools/data/reference_factorized_32.npz vs the JAX "
+          f"package's outputs: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) +
+          f", conf_pred {flipped:.2%} differ")
 
 
 def main():
@@ -304,7 +433,9 @@ def main():
     timing = phase_kernel()
     phase_grad()
     phase_small_model()
-    launches = phase_full()
+    launches = phase_full(factorized=False)
+    phase_factorized()
+    phase_full(factorized=True)
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
         "route": "cuda",

@@ -1,0 +1,140 @@
+"""The port's copies of pure-numpy modules of the JAX package, held equal to
+their originals on numpy inputs: inference/actions.py (every builder),
+data/collate.py, data/transforms.py's normalisation and utils/vis.py's
+artifacts."""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+
+from ag2video_tpu.data.collate import collate as j_collate
+from ag2video_tpu.data import transforms as j_transforms
+from ag2video_tpu.inference import actions as j_actions
+from ag2video_tpu.utils import vis as j_vis
+from ag2video_tpu.vocab import get_vocab
+from ag2video_torch.data.collate import collate as t_collate
+from ag2video_torch.data import transforms as t_transforms
+from ag2video_torch.inference import actions as t_actions
+from ag2video_torch.utils import vis as t_vis
+
+
+def _objs(rng, B=2, O=6, n_real=4):
+    objs = np.zeros((B, O, 4), np.int32)
+    objs[:, :n_real] = rng.randint(1, 3, (B, n_real, 4))
+    return objs
+
+
+BUILDER_CALLS = [
+    ("single", lambda a, rng: a.single(2, 3)),
+    ("single_obj", lambda a, rng: a.single(1, 4, obj=0, t1=-0.2, t2=0.7,
+                                           x_end=0.3, y_end=0.6)),
+    ("compose", lambda a, rng: a.compose(a.single(0, 1), a.converge(4, 2))),
+    ("converge", lambda a, rng: a.converge(5, 3, target_obj=1)),
+    ("converge_before", lambda a, rng: a.converge_before(4, 2)),
+    ("converge_after", lambda a, rng: a.converge_after(4, 2)),
+    ("swap", lambda a, rng: a.swap(rng.uniform(0, 1, (5, 4)), 0, 3, 2, 4)),
+    ("shift_before", lambda a, rng: a.shift_before(a.converge(4, 2))),
+    ("shift_after", lambda a, rng: a.shift_after(a.converge(4, 2), 1.5)),
+    ("extend_horizon", lambda a, rng: a.extend_horizon(a.converge(4, 2), 3)),
+    ("action_rows", lambda a, rng: a.action_rows([[1, 2, 3, 4, 5, 6, 7]])),
+    ("real_object_count",
+     lambda a, rng: np.asarray(a.real_object_count(_objs(rng)))),
+]
+
+
+@pytest.mark.parametrize("name,call", BUILDER_CALLS,
+                         ids=[n for n, _ in BUILDER_CALLS])
+def test_action_builders_match(name, call):
+    want = call(j_actions, np.random.RandomState(3))
+    got = call(t_actions, np.random.RandomState(3))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cater_execute_set_matches(rng):
+    vocab = get_vocab("cater")
+    objs = _objs(rng)
+    boxes = rng.uniform(0, 1, (2, 3, 6, 4)).astype(np.float32)
+    imgs = rng.randn(2, 3, 8, 8, 3).astype(np.float32)
+    want = j_actions.cater_execute_set(vocab)
+    got = t_actions.cater_execute_set(vocab)
+    assert [s["action_name"] for s in got] == \
+        [s["action_name"] for s in want] == ["converge", "swap"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["action_func"](objs, imgs, boxes),
+                                      w["action_func"](objs, imgs, boxes))
+    assert set(t_actions.ACTION_BUILDERS) == set(j_actions.ACTION_BUILDERS)
+
+
+def _samples(rng, vocab):
+    fams = list(vocab["attributes"])
+    out = []
+    # (O, E, A): in the caps; over the edge caps (truncated); over the
+    # object cap (skipped); no actions.
+    for k, (O, E, A) in enumerate([(3, 2, 1), (4, 7, 5), (9, 2, 1),
+                                   (2, 1, 0)]):
+        objs = {f: rng.randint(1, 3, O) for f in fams}
+        out.append((rng.randn(3, 8, 8, 3), objs,
+                    rng.uniform(0, 1, (3, O, 4)).astype(np.float32),
+                    rng.randint(0, 3, (3, E, 3)),
+                    rng.uniform(0, 1, (A, 7)).astype(np.float32),
+                    f"vid_{k}"))
+    return out
+
+
+def test_collate_matches(rng):
+    vocab = get_vocab("cater")
+    samples = _samples(rng, vocab)
+    want = j_collate(samples, vocab, 6, 4, 3)
+    got = t_collate(samples, vocab, 6, 4, 3)
+    assert got.video_ids == want.video_ids == ["vid_0", "vid_1", "vid_3"]
+    for k, v in want.as_dict().items():
+        assert got.as_dict()[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got.as_dict()[k], v)
+
+
+def test_denormalize_matches(rng):
+    np.testing.assert_array_equal(t_transforms.IMG_MEAN,
+                                  j_transforms.IMG_MEAN)
+    np.testing.assert_array_equal(t_transforms.IMG_STD, j_transforms.IMG_STD)
+    x = rng.randn(5, 7, 3).astype(np.float32) * 3
+    np.testing.assert_array_equal(t_transforms.denormalize(x),
+                                  j_transforms.denormalize(x))
+
+
+def test_plot_vid_and_draw_boxes_match(rng):
+    video = rng.randn(3, 16, 20, 3).astype(np.float32)
+    boxes = rng.uniform(0, 0.6, (3, 4, 4)).astype(np.float32)
+    boxes[:, 0] = [0, 0, 1, 1]        # the whole-image dummy box
+    boxes[:, 1, 2] = 0.0              # a degenerate box
+    for b in (None, boxes):
+        got, want = t_vis.plot_vid(video, b), j_vis.plot_vid(video, b)
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.uint8
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        t_vis.draw_boxes(video[0], boxes[0], color=(0.5, 0, 1),
+                         skip_dummy=False),
+        j_vis.draw_boxes(video[0], boxes[0], color=(0.5, 0, 1),
+                         skip_dummy=False))
+
+
+def test_saved_artifacts_match(rng, tmp_path):
+    video = rng.randn(3, 16, 16, 3).astype(np.float32)
+    boxes = rng.uniform(0, 0.6, (3, 2, 4)).astype(np.float32)
+    files = {}
+    for name, vis in (("torch", t_vis), ("jax", j_vis)):
+        d = tmp_path / name / "sub"
+        files[name] = (vis.save_gif(vis.plot_vid(video), str(d / "a.gif")),
+                       vis.save_video_pickle(str(d / "a.pkl"), video, boxes))
+    for got, want in zip(files["torch"], files["jax"]):
+        assert os.path.getsize(got) == os.path.getsize(want)
+    with open(files["torch"][0], "rb") as g, open(files["jax"][0], "rb") as w:
+        assert g.read() == w.read()
+    with open(files["torch"][1], "rb") as f:
+        got = pickle.load(f)
+    np.testing.assert_array_equal(got["image"], video)
+    np.testing.assert_array_equal(got["box"], boxes)

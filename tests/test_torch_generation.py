@@ -201,10 +201,6 @@ def test_snconv_matches(rng, k, use_bias):
 
 def test_unported_modes_raise():
     vocab = get_vocab("cater")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Layout2VidGenerator(vocab, gconv_dim=16, semantic_nc=16, ngf=4,
-                            nff=4, n_blocks_F=1, n_downsample_F=2,
-                            factorized_frontend=True)
     gen = Layout2VidGenerator(vocab, gconv_dim=16, semantic_nc=16, ngf=4,
                               nff=4, n_blocks_F=1, n_downsample_F=2)
     x = torch.zeros(1, 2, 32, 32, 3)

@@ -1,6 +1,8 @@
 """The port runs where JAX is absent: every ag2video_torch module and
 chip_smoke.py import with jax, flax and the JAX package itself
-(ag2video_tpu) blocked, and a CPU call of the
+(ag2video_tpu) blocked, and with imageio blocked too (the card machine
+lacks it; only `utils.vis.save_gif` imports it, when called), and a CPU
+call of the
 rasterizer launches no kernel. chip_smoke.py refuses to run without a card
 and prints no result."""
 
@@ -16,7 +18,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "ag2video_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "ag2video_tpu",
+                                  "imageio"):
             raise ImportError("blocked: " + name)
         return None
 
