@@ -16,8 +16,10 @@ and `conv_dim_in`) run this way in the default configuration.
 `spectral_normalize` is this module's own power iteration, not flax
 `SpectralNorm` (normalization.SpectralWeight): the eps is added to the
 norm, `u` has shape (features,), sigma = v^T K u is taken after the
-iteration, and no sigma is stored. Only inference is ported: eval never
-writes `u` back, so the normalised kernel is cached per weight version.
+iteration, and no sigma is stored. Train mode (`train=True`) writes the
+new `u` back and takes the gradient through sigma; otherwise nothing is
+written, and where no gradient is taken the normalised kernel is cached
+per weight version.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ag2video_torch.models.layers import conv2d_nhwc, trunc_normal_
-from ag2video_torch.models.normalization import BatchNorm, _eval_only
+from ag2video_torch.models.normalization import split_norm, subnorm_layer
 
 
 def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor,
@@ -40,7 +42,8 @@ def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor,
     is the output features (HWIO, or (in, out)).
 
     kernel (..., C_out) is viewed as (K, C_out); u: (C_out,). Returns
-    (kernel / sigma, new_u), computed in fp32 without autograd through u.
+    (kernel / sigma, new_u), computed in fp32; u and v carry no gradient,
+    so the kernel's gradient flows through sigma and the division only.
     """
     k2 = kernel.reshape(-1, kernel.shape[-1]).float()
     u = u.float()
@@ -87,21 +90,16 @@ class FactorizedNormConv(nn.Module):
     One kernel `weight` (OIHW, (features, n_frames*seg_dim + img_ch, ks, ks),
     the dense layer's shape) spectrally normalised as a whole, then the
     per-(frame, object) kernel projection for the layout channels, a dense
-    3x3 SAME conv for the image channels, and BatchNorm with running
-    statistics (submodule `norm`), or a bias when the norm has no subnorm.
+    3x3 SAME conv for the image channels, and the subnorm (submodule
+    `norm`: BatchNorm or the instance norm), or a bias when the norm has no
+    subnorm.
     """
 
     def __init__(self, features: int, norm: str, seg_dim: int, n_frames: int,
                  img_ch: int, kernel_size: int = 3,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        spectral = norm.startswith("spectral")
-        subnorm = norm[len("spectral"):] if spectral else norm
-        has_subnorm = subnorm not in ("", "none")
-        if has_subnorm and subnorm not in ("batch", "sync_batch", "syncbatch"):
-            raise NotImplementedError(
-                f"FactorizedNormConv subnorm {subnorm!r} is not ported yet "
-                "(ROADMAP)")
+        spectral, subnorm, has_subnorm = split_norm(norm)
         self.seg_dim, self.n_frames = seg_dim, n_frames
         self.ks, self.dtype = kernel_size, dtype
         k = kernel_size
@@ -111,7 +109,8 @@ class FactorizedNormConv(nn.Module):
             self.register_buffer("u", torch.zeros(features))
         else:
             self.u = None
-        self.norm = BatchNorm(features, dtype=dtype) if has_subnorm else None
+        self.norm = subnorm_layer(subnorm, features, dtype) \
+            if has_subnorm else None
         self.bias = None if has_subnorm else \
             nn.Parameter(torch.zeros(features))
         self._cache = None
@@ -126,13 +125,19 @@ class FactorizedNormConv(nn.Module):
                 self.bias.zero_()
         self._cache = None
 
-    def normalized_weight(self) -> torch.Tensor:
+    def normalized_weight(self, train: bool = False) -> torch.Tensor:
         """The OIHW kernel divided by sigma (spectral_normalize on its HWIO
-        view), computed once per version of the kernel and `u`."""
+        view). `train` stores the new `u`; without it and without a gradient
+        to take, computed once per version of the kernel and `u`."""
         if self.u is None:
             return self.weight
-        _eval_only(self)
         w = self.weight
+        if train or (torch.is_grad_enabled() and w.requires_grad):
+            kn, new_u = spectral_normalize(w.permute(2, 3, 1, 0), self.u)
+            if train:
+                with torch.no_grad():
+                    self.u.copy_(new_u)
+            return kn.permute(3, 2, 0, 1)
         key = (w.data_ptr(), w._version, self.u.data_ptr(), self.u._version)
         if self._cache is not None and self._cache[0] == key:
             return self._cache[1]
@@ -143,13 +148,13 @@ class FactorizedNormConv(nn.Module):
         return kn
 
     def forward(self, cov_win: torch.Tensor, vecs_win: torch.Tensor,
-                img: torch.Tensor) -> torch.Tensor:
+                img: torch.Tensor, train: bool = False) -> torch.Tensor:
         """cov_win (B, n_frames, O, H, W), vecs_win (B, n_frames, O,
         seg_dim), img (B, H, W, img_ch) -> (B, H, W, features)."""
         B, nF, O, H, W = cov_win.shape
         ks = self.ks
         seg_ch = self.n_frames * self.seg_dim
-        kernel_n = self.normalized_weight()
+        kernel_n = self.normalized_weight(train)
         kdt = self.dtype or kernel_n.dtype
         kernel_n = kernel_n.to(kdt)
 
@@ -167,4 +172,4 @@ class FactorizedNormConv(nn.Module):
                                 dtype=kdt).float()
         if self.norm is None:
             return (out + self.bias).to(kdt)
-        return self.norm(out.to(kdt))
+        return self.norm(out.to(kdt), train)

@@ -17,11 +17,14 @@ import torch
 from torch import nn
 
 from ag2video_torch.models.layers import Conv, leaky_relu_02, upsample_nearest
-from ag2video_torch.models.normalization import BatchNorm, NormConv, SNConv
+from ag2video_torch.models.normalization import (BatchNorm, GroupNorm,
+                                                 NormConv, SNConv)
 
 
 class FlowResBlock(nn.Module):
-    """BN -> lrelu -> spectral conv, twice; identity shortcut."""
+    """norm -> lrelu -> spectral conv, twice; identity shortcut. The norm is
+    BatchNorm ('batch' in the norm string), the instance norm ('instance')
+    or none."""
 
     def __init__(self, features: int, norm: str = "spectralsyncbatch",
                  dtype: Optional[torch.dtype] = None):
@@ -31,21 +34,21 @@ class FlowResBlock(nn.Module):
         if "batch" in sub:
             self.bn_0 = BatchNorm(features, dtype=dtype)
             self.bn_1 = BatchNorm(features, dtype=dtype)
-        elif sub in ("", "none"):
-            self.bn_0 = self.bn_1 = None
+        elif "instance" in sub:
+            self.bn_0 = GroupNorm(None, dtype=dtype)
+            self.bn_1 = GroupNorm(None, dtype=dtype)
         else:
-            raise NotImplementedError(
-                f"FlowResBlock norm {norm!r} is not ported yet (ROADMAP)")
+            self.bn_0 = self.bn_1 = None
         self.conv_0 = SNConv(features, features, 3, spectral=spectral,
                              dtype=dtype)
         self.conv_1 = SNConv(features, features, 3, spectral=spectral,
                              dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dx = x if self.bn_0 is None else self.bn_0(x)
-        dx = self.conv_0(leaky_relu_02(dx))
-        dx = dx if self.bn_1 is None else self.bn_1(dx)
-        dx = self.conv_1(leaky_relu_02(dx))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dx = x if self.bn_0 is None else self.bn_0(x, train)
+        dx = self.conv_0(leaky_relu_02(dx), train)
+        dx = dx if self.bn_1 is None else self.bn_1(dx, train)
+        dx = self.conv_1(leaky_relu_02(dx), train)
         return x + dx
 
 
@@ -81,17 +84,19 @@ class FlowsGenerator(nn.Module):
         self.conv_flow = Conv(ch[0], 2, 3, dtype=dtype)
         self.conv_w = Conv(ch[0], 1, 3, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, C) -> (weight (B, H, W, 1), flow (B, H, W, 2) fp32);
         with skip_first, x is the (B, H, W, nff) output of the first conv."""
         if not self.skip_first:
-            x = leaky_relu_02(self.down_0(x))
+            x = leaky_relu_02(self.down_0(x, train))
         for i in range(self.nd):
-            x = leaky_relu_02(getattr(self, f"down_{i + 1}")(x))
+            x = leaky_relu_02(getattr(self, f"down_{i + 1}")(x, train))
         for i in range(self.n_blocks):
-            x = getattr(self, f"res_{i}")(x)
+            x = getattr(self, f"res_{i}")(x, train)
         for j in range(self.nd):
-            x = leaky_relu_02(getattr(self, f"up_{j}")(upsample_nearest(x)))
+            x = leaky_relu_02(getattr(self, f"up_{j}")(upsample_nearest(x),
+                                                      train))
         flow = self.conv_flow(x) * self.flow_multiplier
         weight = torch.sigmoid(self.conv_w(x))
         return weight, flow.float()

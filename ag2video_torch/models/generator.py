@@ -1,12 +1,18 @@
 """Layout -> video generator (port of ag2video_tpu/models/generator.py).
 
-Ported: autoregressive mode (test-time generation) with either frontend.
 Per generated frame, the window of the last n_frames_G layouts and the
 previous frame(s) feed the flow network, the previous frame is warped by the
 flow, the layout window and the warped frame go through `conv_dim_in` to
 semantic_nc channels, and the SPADE generator's output is added onto the
-warped frame. The JAX package's `nn.scan` over frames is a Python loop over
-one shared `frame_step`.
+warped frame. Two modes share one `frame_step`:
+
+* teacher-forced (training; the previous frames come from the ground
+  truth): every frame is conditionally independent, so (B, T - ncond) is
+  folded into the batch and `frame_step` runs once, as the JAX package
+  does (generator.py:268-280);
+* autoregressive (test-time generation): the JAX package's `nn.scan` over
+  frames is a Python loop over `frame_step`. Autoregressive *training*
+  (`bp_prev`) is not ported.
 
 * Factorized frontend (`factorized_frontend=True`, the default config): the
   per-object box coverage maps are computed once (`box_coverage`, cast to
@@ -18,7 +24,8 @@ one shared `frame_step`.
   rasterized by one `boxes_to_layout_batch` call (the CUDA kernel on the
   card) and each frame's window is their channel stack.
 
-Teacher-forced generation belongs to the training slice and raises.
+`train=True` runs the norms in train mode (batch statistics, spectral
+updates), once per forward.
 """
 
 from __future__ import annotations
@@ -81,15 +88,15 @@ class _FrameStep(nn.Module):
         self.netG = SPADEGenerator(semantic_nc, ngf, norm_G,
                                    num_upsampling_layers, aspect_ratio, dtype)
 
-    def forward(self, imgs_prev: torch.Tensor, window):
+    def forward(self, imgs_prev: torch.Tensor, window, train: bool = False):
         if self.factorized:
             cov_win, vecs_win = window
-            feat = self.flow_down_0(cov_win, vecs_win, imgs_prev)
-            _weight, flow = self.flows_network(leaky_relu_02(feat))
+            feat = self.flow_down_0(cov_win, vecs_win, imgs_prev, train)
+            _weight, flow = self.flows_network(leaky_relu_02(feat), train)
         else:
             input_flow = torch.cat([window, imgs_prev.to(window.dtype)],
                                    dim=-1)
-            _weight, flow = self.flows_network(input_flow)
+            _weight, flow = self.flows_network(input_flow, train)
 
         prev_last = imgs_prev[..., -3:].float()
         img_prev_warp = resample(prev_last, flow)
@@ -98,12 +105,13 @@ class _FrameStep(nn.Module):
 
         if self.factorized:
             x = self.conv_dim_in(cov_win, vecs_win,
-                                 img_prev_warp.to(cov_win.dtype))
+                                 img_prev_warp.to(cov_win.dtype), train)
         else:
             x = self.conv_dim_in(
-                torch.cat([window, img_prev_warp.to(window.dtype)], dim=-1))
+                torch.cat([window, img_prev_warp.to(window.dtype)], dim=-1),
+                train)
         x = leaky_relu_02(x)
-        img_raw = self.netG(x).float() + img_prev_warp
+        img_raw = self.netG(x, train).float() + img_prev_warp
 
         if self.n_frames_G - 1 > 1:
             new_prev = torch.cat([imgs_prev[..., 3:], img_raw], dim=-1)
@@ -145,15 +153,15 @@ class Layout2VidGenerator(nn.Module):
 
     def forward(self, imgs_gt: torch.Tensor, objs: torch.Tensor,
                 obj_vecs: torch.Tensor, layout_boxes: torch.Tensor,
-                teacher_forced: bool = False
+                teacher_forced: bool = False, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """imgs_gt (B, T, H, W, 3), objs (B, O, A), obj_vecs (B, T, O, G),
         layout_boxes (B, T, O, 4) -> (imgs_pred (B, T, H, W, 3),
         flows (B, T, H, W, 2), confs (B, T, H, W, 1)), all fp32."""
-        if teacher_forced:
+        if train and not teacher_forced:
             raise NotImplementedError(
-                "teacher-forced generation is not ported yet: ROADMAP "
-                "'Slices of the port' item 3 (the training slice)")
+                "autoregressive training (bp_prev) is not ported yet: "
+                "ROADMAP 'Modules not yet ported'")
         B, T, H, W, _ = imgs_gt.shape
         ncond = self.n_frames_G - 1
         if T <= ncond:
@@ -173,21 +181,41 @@ class Layout2VidGenerator(nn.Module):
                                         mask=mask_bt,
                                         backend=self.rasterizer_backend)
 
-        # Autoregressive loop over the windows of frames t .. t + ncond
-        # (reference seg_t, :66): the channel stack of those layouts, or
-        # their (coverage, vecs) on the factorized frontend.
-        prev = torch.cat([imgs_gt[:, i] for i in range(ncond)], dim=-1)
-        imgs, flows, confs = [], [], []
-        for t in range(T - ncond):
+        n_gen = T - ncond
+        if teacher_forced:
+            # Every frame at once: the previous frames come from the ground
+            # truth, so (B, n_gen) folds into the batch. Windows of frames
+            # t .. t + ncond: the channel stack of those layouts, or their
+            # (coverage, vecs) on the factorized frontend.
+            fold = lambda a: a.reshape(B * n_gen, *a.shape[2:])
             if self.factorized_frontend:
-                win = (cov[:, t:t + ncond + 1], vecs[:, t:t + ncond + 1])
+                win = tuple(fold(torch.stack(
+                    [a[:, i:i + n_gen] for i in range(ncond + 1)], dim=2))
+                    for a in (cov, vecs))
             else:
-                win = torch.cat([seg[:, t + i] for i in range(ncond + 1)],
-                                dim=-1)
-            prev, (img, flow, conf) = self.frame_step(prev, win)
-            imgs.append(img)
-            flows.append(flow)
-            confs.append(conf)
+                win = fold(torch.cat(
+                    [seg[:, i:i + n_gen] for i in range(ncond + 1)], dim=-1))
+            prev = fold(torch.cat(
+                [imgs_gt[:, i:i + n_gen] for i in range(ncond)], dim=-1))
+            _, (img, flow, conf) = self.frame_step(prev, win, train)
+            imgs, flows, confs = (
+                list(a.reshape(B, n_gen, *a.shape[1:]).unbind(1))
+                for a in (img, flow, conf))
+        else:
+            # Autoregressive loop over the same windows (reference seg_t,
+            # :66), each frame fed the frames generated before it.
+            prev = torch.cat([imgs_gt[:, i] for i in range(ncond)], dim=-1)
+            imgs, flows, confs = [], [], []
+            for t in range(n_gen):
+                if self.factorized_frontend:
+                    win = (cov[:, t:t + ncond + 1], vecs[:, t:t + ncond + 1])
+                else:
+                    win = torch.cat([seg[:, t + i] for i in range(ncond + 1)],
+                                    dim=-1)
+                prev, (img, flow, conf) = self.frame_step(prev, win)
+                imgs.append(img)
+                flows.append(flow)
+                confs.append(conf)
 
         # Conditioning frames, then generated frames; flow/conf aligned at
         # index t-1 (reference generator.py:78-79).

@@ -99,15 +99,20 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], stride: int = 1,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """SAME conv of an (..., H, W, C) tensor with an OIHW weight, computed
-    in `dtype` (flax promote_dtype rule); returns (..., Ho, Wo, O)."""
+                dtype: Optional[torch.dtype] = None,
+                padding="SAME") -> torch.Tensor:
+    """Conv of an (..., H, W, C) tensor with an OIHW weight, computed in
+    `dtype` (flax promote_dtype rule); returns (..., Ho, Wo, O). `padding`
+    is 'SAME' (flax/XLA's) or explicit ((top, bottom), (left, right))."""
     dt = compute_dtype(x, dtype, weight, bias)
     lead = x.shape[:-3]
     H, W, C = x.shape[-3:]
     k = weight.shape[-1]
     xn = x.to(dt).reshape(-1, H, W, C).permute(0, 3, 1, 2)
-    ph, pw = same_padding(H, k, stride), same_padding(W, k, stride)
+    if padding == "SAME":
+        ph, pw = same_padding(H, k, stride), same_padding(W, k, stride)
+    else:
+        ph, pw = (tuple(p) for p in padding)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         padding = (ph[0], pw[0])
     else:
@@ -120,17 +125,19 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
 
 
 class Conv(nn.Module):
-    """flax nn.Conv with SAME padding: weight OIHW, optional bias."""
+    """flax nn.Conv: weight OIHW, optional bias, padding 'SAME' or explicit
+    ((top, bottom), (left, right))."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, padding="SAME"):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(features, in_features, k, k))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.stride = stride
         self.dtype = dtype
+        self.padding = padding
 
     def init_(self, g: torch.Generator) -> None:
         o, i, kh, kw = self.weight.shape
@@ -141,7 +148,8 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         w = self.weight if weight is None else weight
-        return conv2d_nhwc(x, w, self.bias, self.stride, self.dtype)
+        return conv2d_nhwc(x, w, self.bias, self.stride, self.dtype,
+                           self.padding)
 
 
 class MLP(nn.Module):
@@ -188,3 +196,13 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     ix = torch.floor(torch.arange(Wo, dtype=torch.float32, device=dev)
                      * (W / Wo)).long()
     return x.index_select(-3, iy).index_select(-2, ix)
+
+
+def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """F.avg_pool2d(k=3, s=2, p=1, count_include_pad=False) of (..., H, W,
+    C): the multiscale discriminator's downsample."""
+    lead = x.shape[:-3]
+    H, W, C = x.shape[-3:]
+    y = F.avg_pool2d(x.reshape(-1, H, W, C).permute(0, 3, 1, 2), 3, 2, 1,
+                     count_include_pad=False).permute(0, 2, 3, 1)
+    return y.reshape(*lead, *y.shape[1:])

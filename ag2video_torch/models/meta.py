@@ -3,6 +3,13 @@
 AG2VideoModel = two Acts2LayoutModel rollouts, `acts_to_boxes` for motion and
 `acts_to_objs` for appearance, feeding Layout2VidGenerator. Predicted boxes
 are detached before generation (reference meta_models.py:53).
+
+The call takes the JAX module's switches: `test_mode` (autoregressive
+generation; otherwise teacher-forced unless `bp_prev`), `use_gt` (render
+from the ground-truth boxes), `graph_only` (the layout rollout only) and
+`train` (train-mode norms). Its defaults are the inference call,
+test_mode=True and train=False; the trainer passes test_mode=False,
+use_gt=True, train=True.
 """
 
 from __future__ import annotations
@@ -62,14 +69,12 @@ class AG2VideoModel(nn.Module):
         # replaces them.
         init_params(self, cfg.seed)
         self.to(device)
-        # Only inference is ported: the norms read running statistics.
-        self.eval()
 
     def forward(self, imgs: torch.Tensor, objs: torch.Tensor,
                 triplets: torch.Tensor, actions: torch.Tensor,
                 boxes_gt: torch.Tensor, test_mode: bool = True,
-                use_gt: bool = False,
-                graph_only: bool = False) -> Dict[str, Any]:
+                use_gt: bool = False, graph_only: bool = False,
+                train: bool = False) -> Dict[str, Any]:
         obj_vecs, boxes_pred, actions_data = self.acts_to_boxes(
             objs, triplets, actions, boxes_gt)
         if graph_only:
@@ -81,7 +86,8 @@ class AG2VideoModel(nn.Module):
         gen_boxes = boxes_gt if use_gt else boxes_pred.detach()
         teacher_forced = (not test_mode) and (not self.config.bp_prev)
         imgs_pred, flows_pred, conf_pred = self.layout_to_video(
-            imgs, objs, obj_vecs, gen_boxes, teacher_forced=teacher_forced)
+            imgs, objs, obj_vecs, gen_boxes, teacher_forced=teacher_forced,
+            train=train)
         return {
             "imgs_pred": imgs_pred,
             "boxes_pred": boxes_pred,

@@ -1,23 +1,38 @@
 """Normalization layers (port of ag2video_tpu/models/normalization.py):
-eval-mode BatchNorm, the param-free norm, SPADE, spectral-norm convs.
+BatchNorm, GroupNorm (the 'instance' and 'group' norms), the param-free
+norm, SPADE, spectral-norm convs.
 
-Only inference ('syncbatch' norms read their running statistics) is ported;
-a layer put in training mode raises, because batch statistics and the
-spectral power-iteration update belong to the training slice.
+Train mode is an explicit argument, `train`, threaded through every
+forward as the JAX package threads it; `module.training` is not read. With
+`train=True` a BatchNorm normalises by the batch statistics and updates its
+running averages, and a spectral norm writes its power-iteration state;
+with `train=False` both read their stored state and write nothing. (The
+training step runs the discriminator with `train=False` in the generator
+step and with `train=True` in its own step, as the JAX trainer does.)
 
-Spectral norm follows flax `SpectralNorm` (flax 0.12.3), not
+Statistics follow flax (0.12): taken in fp32 over every axis but the last
+(BatchNorm) or over the spatial axes and the channels of a group
+(GroupNorm), with the "fast" variance max(0, E[x^2] - E[x]^2), which is the
+biased variance; the running averages move as flax's do,
+`ra = m * ra + (1 - m) * stat` (m = 0.99 by default, 0.9 in the param-free
+norm). `F.batch_norm` would store the unbiased variance, and its momentum
+is the complement.
+
+Spectral norm follows flax `SpectralNorm`, not
 `torch.nn.utils.spectral_norm`: the HWIO kernel is viewed as (-1, out), one
 power iteration runs from the stored `u` (l2-normalised with eps 1e-12), and
-the kernel is divided by sigma when sigma != 0; the bias is left alone. flax
-runs that iteration on every call, update_stats=False included. Eval never
-updates `u`, so the port computes the normalised kernel once and caches it
-until the kernel or `u` changes (`SpectralWeight`): exact, and free per frame.
+the kernel is divided by sigma = v K u^T when sigma != 0; `u` and `v` carry
+no gradient, sigma carries the kernel's; the bias is left alone. flax runs
+that iteration on every call, update_stats=False included. Without an update
+and without a gradient to take, the port computes the normalised kernel once
+and caches it until the kernel or `u` changes (`SpectralWeight`): exact, and
+free per frame.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -33,20 +48,53 @@ def parse_spade_norm(config_text: str):
     return m.group(1), int(m.group(2))
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is ported for inference only; "
-            "training-mode norms come with the training slice (ROADMAP)")
+def split_norm(norm: str):
+    """'spectralinstance' -> (spectral, subnorm, has_subnorm)."""
+    spectral = norm.startswith("spectral")
+    subnorm = norm[len("spectral"):] if spectral else norm
+    return spectral, subnorm, subnorm not in ("", "none")
+
+
+BATCH_KINDS = ("batch", "sync_batch", "syncbatch")
+
+
+def fp32_stats(x: torch.Tensor, dims: Sequence[int]):
+    """flax `_compute_stats`: fp32 mean and max(0, E[x^2] - E[x]^2)."""
+    xf = x.float()
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              eps: float, weight: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor],
+              dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax `_normalize`: (x - mean) * (rsqrt(var + eps) * scale) + bias in
+    fp32, returned in `dtype` (or the promoted type of x and the params)."""
+    mul = torch.rsqrt(var + eps)
+    if weight is not None:
+        mul = mul * weight
+    y = (x.float() - mean) * mul
+    if bias is not None:
+        y = y + bias
+    out = dtype
+    if out is None:
+        out = x.dtype
+        for p in (weight, bias):
+            if p is not None:
+                out = torch.promote_types(out, p.dtype)
+    return y.to(out)
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm with use_running_average=True over the last axis:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias in fp32, returned in
-    `dtype` (or x's dtype when unset, as flax canonicalises it)."""
+    """flax nn.BatchNorm over the last axis: batch statistics over every
+    other axis and a running-average update when `train`, the running
+    statistics otherwise."""
 
     def __init__(self, features: int, use_scale: bool = True,
                  use_bias: bool = True, eps: float = 1e-5,
+                 momentum: float = 0.99,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features)) if use_scale else None
@@ -54,6 +102,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
 
     def init_(self, g: torch.Generator) -> None:
@@ -65,35 +114,79 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        mul = torch.rsqrt(self.running_var + self.eps)
-        if self.weight is not None:
-            mul = mul * self.weight
-        y = (x.float() - self.running_mean) * mul
-        if self.bias is not None:
-            y = y + self.bias
-        out = self.dtype
-        if out is None:
-            out = x.dtype
-            for p in (self.weight, self.bias):
-                if p is not None:
-                    out = torch.promote_types(out, p.dtype)
-        return y.to(out)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return normalize(x, self.running_mean, self.running_var,
+                             self.eps, self.weight, self.bias, self.dtype)
+        mean, var = fp32_stats(x, tuple(range(x.dim() - 1)))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1 - m) * var.detach())
+        return normalize(x, mean, var, self.eps, self.weight, self.bias,
+                         self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm without scale or bias (no state): per sample,
+    statistics over the spatial axes and the channels of each of
+    `num_groups` groups (None: one group per channel, the 'instance'
+    norm)."""
+
+    def __init__(self, num_groups: Optional[int] = None, eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        C = x.shape[-1]
+        G = self.num_groups or C
+        xg = x.reshape(*x.shape[:-1], G, C // G)
+        dims = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+        mean, var = fp32_stats(xg, dims)  # (N, G)
+        per_channel = (x.shape[0],) + (1,) * (x.dim() - 2) + (C,)
+        if G != C:
+            mean = mean.repeat_interleave(C // G, -1)
+            var = var.repeat_interleave(C // G, -1)
+        return normalize(x, mean.reshape(per_channel),
+                         var.reshape(per_channel), self.eps, None, None,
+                         self.dtype)
+
+
+def subnorm_layer(subnorm: str, features: int,
+                  dtype: Optional[torch.dtype]) -> nn.Module:
+    """NormConv / FlowResBlock / FactorizedNormConv subnorm: BatchNorm with
+    flax's defaults (momentum 0.99, eps 1e-5) or the instance norm (eps
+    1e-6), in the layer's dtype."""
+    if subnorm in BATCH_KINDS:
+        return BatchNorm(features, dtype=dtype)
+    if subnorm == "instance":
+        return GroupNorm(None, dtype=dtype)
+    raise ValueError(f"normalization layer {subnorm!r} is not recognized")
 
 
 class ParamFreeNorm(nn.Module):
-    """Affine-free 'batch'/'syncbatch' norm (eval: running statistics)."""
+    """Affine-free norm: 'batch'/'syncbatch' (momentum 0.9, eps 1e-5),
+    'instance' (eps 1e-5) or 'group' (min(32, C) groups, eps 1e-6)."""
 
     def __init__(self, kind: str, features: int):
         super().__init__()
-        if kind not in ("batch", "syncbatch", "sync_batch"):
-            raise NotImplementedError(
-                f"param-free norm {kind!r} is not ported yet (ROADMAP)")
-        self.bn = BatchNorm(features, use_scale=False, use_bias=False)
+        # One attribute name for every kind: only BatchNorm has state, and
+        # flax names it `bn`.
+        if kind in BATCH_KINDS:
+            self.bn = BatchNorm(features, use_scale=False, use_bias=False,
+                                momentum=0.9)
+        elif kind == "instance":
+            self.bn = GroupNorm(None, eps=1e-5)
+        elif kind == "group":
+            self.bn = GroupNorm(min(32, features))
+        else:
+            raise ValueError(f"Unrecognized param-free norm {kind!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.bn(x, train)
 
 
 class SpectralWeight(nn.Module):
@@ -116,10 +209,27 @@ class SpectralWeight(nn.Module):
     def _l2n(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.rsqrt((x * x).sum() + self.eps)
 
-    def normalize(self, weight: torch.Tensor) -> torch.Tensor:
+    def _normalize(self, weight: torch.Tensor, update_stats: bool):
+        value = weight.float().permute(2, 3, 1, 0)
+        value = value.reshape(-1, value.shape[-1])  # HWIO -> (-1, out)
+        with torch.no_grad():
+            vd = value.detach()
+            v = self._l2n(self.u.float() @ vd.t())
+            u = self._l2n(v @ vd)
+        sigma = ((v @ value) @ u.t())[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma.detach())
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def normalize(self, weight: torch.Tensor,
+                  update_stats: bool = False) -> torch.Tensor:
         """(out, in, kh, kw) kernel -> kernel / sigma, sigma from one power
-        iteration from `u` on the kernel viewed as (kh*kw*in, out)."""
-        _eval_only(self)
+        iteration from `u` on the kernel viewed as (kh*kw*in, out); with
+        `update_stats`, the new `u` and sigma are stored."""
+        if update_stats or (torch.is_grad_enabled() and weight.requires_grad):
+            return self._normalize(weight, update_stats)
         key = (weight.data_ptr(), weight._version, weight.dtype,
                self.u.data_ptr(), self.u._version)
         if self._cache is not None and self._cache[0] == key:
@@ -127,13 +237,7 @@ class SpectralWeight(nn.Module):
         # A normal tensor even under inference_mode, so that a later call
         # with autograd on can use the cache.
         with torch.inference_mode(False), torch.no_grad():
-            value = weight.detach().float().permute(2, 3, 1, 0)
-            value = value.reshape(-1, value.shape[-1])  # HWIO -> (-1, out)
-            v = self._l2n(self.u.float() @ value.t())
-            u = self._l2n(v @ value)
-            sigma = ((v @ value) @ u.t())[0, 0]
-            w = weight.detach() / torch.where(sigma != 0, sigma,
-                                              torch.ones_like(sigma))
+            w = self._normalize(weight.detach(), False)
         self._cache = (key, w)
         return w
 
@@ -149,37 +253,36 @@ class SNConv(nn.Module):
                          dtype)
         self.spectral = SpectralWeight(features) if spectral else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.spectral is None:
             return self.conv(x)
-        return self.conv(x, self.spectral.normalize(self.conv.weight))
+        return self.conv(x, self.spectral.normalize(self.conv.weight, train))
 
 
 class NormConv(nn.Module):
-    """get_nonspade_norm_layer: (spectral) conv, then an optional subnorm.
-    The conv has no bias when a subnorm follows."""
+    """get_nonspade_norm_layer: (spectral) conv, then an optional subnorm
+    (BatchNorm or the instance norm, submodule `norm`). The conv has no bias
+    when a subnorm follows. `padding` is 'SAME' or ((top, bottom), (left,
+    right)), as flax takes it."""
 
     def __init__(self, in_features: int, features: int, norm: str,
-                 kernel_size: int = 3, stride: int = 1,
+                 kernel_size: int = 3, stride: int = 1, padding="SAME",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        spectral = norm.startswith("spectral")
-        subnorm = norm[len("spectral"):] if spectral else norm
-        has_subnorm = subnorm not in ("", "none")
-        if has_subnorm and subnorm not in ("batch", "sync_batch", "syncbatch"):
-            raise NotImplementedError(
-                f"NormConv subnorm {subnorm!r} is not ported yet (ROADMAP)")
+        spectral, subnorm, has_subnorm = split_norm(norm)
         self.conv = Conv(in_features, features, kernel_size, stride,
-                         use_bias=not has_subnorm, dtype=dtype)
+                         use_bias=not has_subnorm, dtype=dtype,
+                         padding=padding)
         self.spectral = SpectralWeight(features) if spectral else None
-        self.norm = BatchNorm(features, dtype=dtype) if has_subnorm else None
+        self.norm = subnorm_layer(subnorm, features, dtype) \
+            if has_subnorm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.spectral is None:
             x = self.conv(x)
         else:
-            x = self.conv(x, self.spectral.normalize(self.conv.weight))
-        return x if self.norm is None else self.norm(x)
+            x = self.conv(x, self.spectral.normalize(self.conv.weight, train))
+        return x if self.norm is None else self.norm(x, train)
 
 
 class SPADE(nn.Module):
@@ -207,13 +310,13 @@ class SPADE(nn.Module):
         return (torch.cat([self.mlp_gamma.weight, self.mlp_beta.weight], 0),
                 torch.cat([self.mlp_gamma.bias, self.mlp_beta.bias], 0))
 
-    def normalize_affine(self, x, gamma, beta):
-        return self.param_free_norm(x) * (1 + gamma) + beta
+    def normalize_affine(self, x, gamma, beta, train: bool = False):
+        return self.param_free_norm(x, train) * (1 + gamma) + beta
 
-    def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         nc = x.shape[-1]
         seg = resize_nearest(segmap, tuple(x.shape[-3:-1]))
         actv = torch.relu(self.mlp_shared(seg))
         gb = conv2d_nhwc(actv, *self.gamma_beta_kernels(), dtype=self.dtype)
-        return self.normalize_affine(x, gb[..., :nc], gb[..., nc:])
-
+        return self.normalize_affine(x, gb[..., :nc], gb[..., nc:], train)

@@ -44,7 +44,8 @@ class SPADEResnetBlock(nn.Module):
         self.norm_1 = SPADE(spade_cfg, fmiddle, label_nc, dtype)
         self.conv_1 = SNConv(fmiddle, fout, 3, spectral=spectral, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seg: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         norms = [self.norm_0, self.norm_1]
         ncs = [self.fin, self.fmiddle]
         if self.shortcut:
@@ -67,11 +68,11 @@ class SPADEResnetBlock(nn.Module):
         x_s = x
         if self.shortcut:
             x_s = self.conv_s(self.norm_s.normalize_affine(
-                x, gammas[2], betas[2]))
-        dx = self.norm_0.normalize_affine(x, gammas[0], betas[0])
-        dx = self.conv_0(leaky_relu_02(dx))
-        dx = self.norm_1.normalize_affine(dx, gammas[1], betas[1])
-        dx = self.conv_1(leaky_relu_02(dx))
+                x, gammas[2], betas[2], train), train)
+        dx = self.norm_0.normalize_affine(x, gammas[0], betas[0], train)
+        dx = self.conv_0(leaky_relu_02(dx), train)
+        dx = self.norm_1.normalize_affine(dx, gammas[1], betas[1], train)
+        dx = self.conv_1(leaky_relu_02(dx), train)
         return x_s + dx
 
 
@@ -108,7 +109,8 @@ class SPADEGenerator(nn.Module):
         sh = round(sw / self.aspect_ratio)
         return sh, sw
 
-    def forward(self, layout: torch.Tensor) -> torch.Tensor:
+    def forward(self, layout: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         H, W = layout.shape[-3], layout.shape[-2]
         sh, sw = self.latent_size((H, W))
 
@@ -123,7 +125,7 @@ class SPADEGenerator(nn.Module):
             return seg if seg is not None else resize_nearest(layout, hw)
 
         def block(x, name):
-            return getattr(self, name)(x, seg_at(x.shape[-3:-1]))
+            return getattr(self, name)(x, seg_at(x.shape[-3:-1]), train)
 
         x = self.fc(seg_at((sh, sw)))
         x = block(x, "head_0")

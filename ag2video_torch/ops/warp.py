@@ -27,9 +27,16 @@ def flow_grid(flow: torch.Tensor) -> torch.Tensor:
 
 
 def resample(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp `image` (B, H, W, C) by `flow` (B, H, W, 2) in pixel units."""
+    """Warp `image` (B, H, W, C) by `flow` (B, H, W, 2) in pixel units.
+
+    A NaN flow gives a NaN pixel, as in the JAX package (a step with a
+    non-finite loss is then skipped). `F.grid_sample` on the CPU turns a
+    NaN coordinate into an index out of bounds, so such coordinates are
+    sampled at the centre and their pixels set to NaN afterwards."""
     grid = flow_grid(flow)
+    nan = torch.isnan(grid).any(-1, keepdim=True)
+    grid = torch.where(nan, torch.zeros_like(grid), grid)
     out = F.grid_sample(image.permute(0, 3, 1, 2), grid.to(image.dtype),
                         mode="bilinear", padding_mode="border",
-                        align_corners=False)
-    return out.permute(0, 2, 3, 1)
+                        align_corners=False).permute(0, 2, 3, 1)
+    return torch.where(nan, torch.full_like(out, float("nan")), out)

@@ -1,0 +1,121 @@
+"""Training state (port of ag2video_tpu/train/state.py): the generator-side
+model, the discriminator, the frozen VGG, and the reference's three Adams.
+
+The reference (scripts/train.py:365-368) builds `optimizer_graph` over the
+`acts_to_boxes` parameters and `optimizer_generator` over the rest of the
+model; the discriminator owns a third Adam (meta_models.py:70). Each is a
+`torch.optim.Adam` with betas (beta1, 0.999) and eps 1e-8, whose update
+rule is optax.adam's; the learning rate follows the JAX package's
+schedule (`learning_rate`) by the optimizer's own count of updates, as
+optax counts them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ag2video_torch.config import Config
+from ag2video_torch.models.discriminator import MultiscaleActionDiscriminator
+from ag2video_torch.models.meta import AG2VideoModel
+from ag2video_torch.models.vgg import (RANDOM_WEIGHTS_WARNING, VGG19Features,
+                                       load_vgg19_arrays)
+from ag2video_torch.weights import from_flax, init_params
+
+log = logging.getLogger(__name__)
+
+GRAPH_KEY = "acts_to_boxes"
+
+
+def learning_rate(cfg: Config, count: int, scale_decayed: float = 1.0
+                  ) -> float:
+    """The JAX package's `_lr_schedule` at update `count`: constant, or
+    with niter_decay > 0 constant for `niter` updates, then a linear decay
+    to zero over niter_decay, scaled by `scale_decayed` (the TTUR split)
+    once decaying."""
+    base = cfg.learning_rate
+    if cfg.niter_decay <= 0:
+        return base
+    frac = min(max((count - cfg.niter) / max(cfg.niter_decay, 1), 0.0), 1.0)
+    return base * (1.0 - frac) * (scale_decayed if frac > 0 else 1.0)
+
+
+class ScheduledAdam(torch.optim.Adam):
+    """torch.optim.Adam whose learning rate is `learning_rate(cfg, count,
+    scale_decayed)`, `count` being the number of updates taken so far."""
+
+    def __init__(self, params, cfg: Config, scale_decayed: float = 1.0):
+        super().__init__(params, lr=cfg.learning_rate,
+                         betas=(cfg.beta1, 0.999), eps=1e-8)
+        self.cfg, self.scale_decayed, self.count = cfg, scale_decayed, 0
+
+    def step(self, closure=None):
+        lr = learning_rate(self.cfg, self.count, self.scale_decayed)
+        for group in self.param_groups:
+            group["lr"] = lr
+        out = super().step(closure)
+        self.count += 1
+        return out
+
+
+def make_optimizers(cfg: Config, model: nn.Module, disc: nn.Module):
+    """(graph, generator, discriminator) Adams: `acts_to_boxes.*` only, the
+    rest of the model, and D; TTUR halves G's and doubles D's decayed rate."""
+    if cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"param_dtype={cfg.param_dtype!r} (bf16 params with an fp32 "
+            "master in the optimizer) is not ported yet: ROADMAP 'Modules "
+            "not yet ported'")
+    ttur = not cfg.no_TTUR
+    graph = [p for n, p in model.named_parameters()
+             if n.split(".")[0] == GRAPH_KEY]
+    gen = [p for n, p in model.named_parameters()
+           if n.split(".")[0] != GRAPH_KEY]
+    return (ScheduledAdam(graph, cfg),
+            ScheduledAdam(gen, cfg, 0.5 if ttur else 1.0),
+            ScheduledAdam(disc.parameters(), cfg, 2.0 if ttur else 1.0))
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    epoch: int
+    model: AG2VideoModel                   # params + batch_stats / spectral
+    disc: MultiscaleActionDiscriminator   # params + spectral
+    vgg: Optional[VGG19Features]           # frozen; None without the loss
+    opt_graph: ScheduledAdam
+    opt_gen: ScheduledAdam
+    opt_d: ScheduledAdam
+    skipped_nan: int = 0
+
+
+def create_train_state(cfg: Config, vocab: Dict[str, Any],
+                       device: torch.device) -> TrainState:
+    """Seeded models (the model from cfg.seed, D from cfg.seed + 1, a random
+    VGG from cfg.seed + 2) on `device` and fresh optimizers."""
+    model = AG2VideoModel(cfg, vocab, device=device)
+    disc = MultiscaleActionDiscriminator(
+        vocab, embedding_dim=cfg.embedding_dim, gconv_dim=cfg.gconv_dim,
+        gconv_hidden_dim=cfg.gconv_hidden_dim,
+        gconv_pooling=cfg.gconv_pooling,
+        mlp_normalization=cfg.mlp_normalization, num_D=cfg.num_D,
+        n_layers_D=cfg.n_layers_D, ndf=cfg.ndf, norm_D=cfg.norm_D,
+        dtype=getattr(torch, cfg.compute_dtype) if cfg.compute_dtype
+        else None)
+    disc = init_params(disc, cfg.seed + 1).to(device)
+    vgg_arrays = load_vgg19_arrays()
+    vgg = None
+    if vgg_arrays is not None:
+        vgg = from_flax({"params": vgg_arrays}, VGG19Features())
+    elif not cfg.no_vgg_loss:
+        log.warning(RANDOM_WEIGHTS_WARNING)
+        vgg = init_params(VGG19Features(), cfg.seed + 2)
+    if vgg is not None:
+        vgg = vgg.to(device)
+    opt_graph, opt_gen, opt_d = make_optimizers(cfg, model, disc)
+    return TrainState(step=0, epoch=0, model=model, disc=disc, vgg=vgg,
+                      opt_graph=opt_graph, opt_gen=opt_gen, opt_d=opt_d)

@@ -27,6 +27,13 @@ variance, N(0, 1) spectral `u`, N(0, 1/features) factorized `u`) from one
 
 `load_flax_npz(path, model)` loads an exported run's weights, an .npz in
 the layout of flax_npz.py (written by torch_tools/export_run_weights.py).
+
+The same mapping loads the discriminator (`gcn_step/*` under its scan,
+`fc_objs_vecs`, `discriminator_{i}/model{n}/...` and its `spectral`
+collection) and the VGG (`conv_{i}`). `trainer_from_flax(state, trainer)`
+fills a Trainer's model, discriminator and VGG from a JAX TrainState's
+params / model_state / d_params / d_state / vgg_params, strictly; the
+optimizer moments are not carried, so both sides start from step 0.
 """
 
 from __future__ import annotations
@@ -112,3 +119,20 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
         if init is not None:
             init(g)
     return model
+
+
+def trainer_from_flax(state: Any, trainer) -> Any:
+    """Load a JAX TrainState (or a mapping with its fields) into `trainer`
+    (an initialised ag2video_torch.train.Trainer), strictly; returns it."""
+    get = (lambda k: state[k]) if isinstance(state, Mapping) \
+        else (lambda k: getattr(state, k))
+    st = trainer.state
+    from_flax({"params": get("params"), **get("model_state")}, st.model)
+    from_flax({"params": get("d_params"), **get("d_state")}, st.disc)
+    vgg = get("vgg_params")
+    if (vgg is None) != (st.vgg is None):
+        raise KeyError(f"VGG params on the JAX side: {vgg is not None}; "
+                       f"VGG in the trainer: {st.vgg is not None}")
+    if vgg is not None:
+        from_flax({"params": vgg}, st.vgg)
+    return trainer

@@ -9,9 +9,10 @@ Phases, each printing one line (any failure raises and exits nonzero):
 2. the box-rasterizer kernel against its plain PyTorch version at the
    shapes of KERNEL_SHAPES (fully masked frames must come out exactly
    zero), then kernel, plain, library (torch.bmm) and fill_ times at the
-   generator's shape, in turns (`time_shape_c`), beside the kernel's bound;
+   dense generator's shape (c) and at the discriminator's shape (disc), in
+   turns (`time_shape`), beside the kernel's bound;
 3. gradients through the kernel's autograd.Function against autograd of the
-   plain version;
+   plain version, in fp32 and at the discriminator's bf16 shape;
 4. a small fp32 model at 64x64 built on the card (the default device) and
    on the CPU from one seed: the same weights; run with the kernel, with
    the plain rasterizer on the card, and on the CPU: the frames must agree;
@@ -26,7 +27,18 @@ Phases, each printing one line (any failure raises and exits nonzero):
 7. the default configuration (factorized frontend) at full width,
    CATER-256x256, B=2, bf16, seeded random weights, through
    `inference.generate`: finite frames, no rasterizer call of either kind,
-   frames/s and peak memory in phase 5's format.
+   frames/s and peak memory in phase 5's format;
+8. a small fp32 trainer at 64x64 (TF32 off), per frontend: `train.Trainer`
+   on the card, on the CPU, and on the card with the plain rasterizer, from
+   one seed; two `train_step`s and one `graph_step` each: the losses and
+   the parameters after the steps must agree;
+9. the training iteration at full width, the JAX package's Config defaults
+   for CATER-256x256 (B=3 clips of 4 frames, graph clips of 16, factorized
+   frontend, bf16, num_D=2, n_layers_D=4, ndf=64, feature matching and
+   the VGG loss on, seeded random weights): 2 warm-up and 5 timed
+   iterations (`train_step` + `graph_step`): finite losses, no skipped
+   step, exactly 2 rasterizer kernel launches and no plain call per
+   `train_step`, ms per iteration, training samples/s and peak memory.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -53,6 +65,7 @@ from ag2video_torch.ops._kernels import rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
+from ag2video_torch.train import Trainer
 from ag2video_torch.weights import init_params
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
@@ -77,6 +90,26 @@ PAIR_GEN = dict(semantic_nc=64, ngf=4, nff=8, n_blocks_F=1, n_downsample_F=1,
 # That test's own bound: the two frontends sum 9*1027 products in other
 # orders, and the SPADE stack and the frame loop carry the difference on.
 PAIR_TOL = dict(rtol=1e-3, atol=1e-4)
+# Phase 8: SMALL with the discriminator widths of the JAX package's
+# tests/test_train.py::tiny_config, 3-frame clips and 4-frame graph clips.
+# lr 1e-5: Adam's first update is ~lr * sign(g), so a gradient element at
+# rounding level that flips sign moves its parameter by 2 * lr per step.
+TRAIN_SMALL = dict(SMALL, batch_size=2, frames_per_action_graph=1, num_D=2,
+                   n_layers_D=2, learning_rate=1e-5)
+# First step from identical weights: summation order only (the CPU tests
+# see <= 1e-6 between the port and the JAX package). The second step and
+# the graph step follow an update that rounding may have flipped in sign
+# (the card vs the CPU: 1.2e-3 in the second step's loss_F_Warp, whose
+# flows are 20x the flow net's output).
+STEP1_TOL = dict(rtol=1e-4, atol=1e-6)
+STEP2_TOL = dict(rtol=1e-2, atol=1e-6)
+# Parameters after two Adam steps: each update is at most ~1.15 * lr, so a
+# flipped element moves by at most ~4.3 * lr over the two.
+PARAM_ATOL = 5 * TRAIN_SMALL["learning_rate"]
+# Phase 9: the JAX package's Config defaults at CATER-256x256 (batch 3,
+# 4-frame clips, 4 * 4-frame graph clips, 12 objects / triplets, 4
+# actions, factorized frontend, D and losses as configured), in bf16.
+TRAIN_FULL = dict(image_size=(256, 256), compute_dtype="bfloat16")
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "torch_tools", "data", "reference_factorized_32.npz")
 
@@ -131,8 +164,12 @@ KERNEL_SHAPES = [
     ("D520", 2, 11, 520, 40, 48, torch.bfloat16),
     ("ragged", 2, 11, 100, 37, 50, torch.bfloat16),
     ("b2bf", 2, 20, 30, 20, 24, torch.bfloat16),
+    ("disc", 9, 12, 256, 256, 256, torch.bfloat16),
 ]
 SHAPE_C = (16, 11, 512, 256, 256)  # (N, O, D, H, W) of the generator
+# The discriminator's call in training: N = B * (T - 1) = 9 frames of the
+# full-width config, O = 12, D = 2 * gconv_dim = 256.
+SHAPE_DISC = (9, 12, 256, 256, 256)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, same source
 
@@ -161,7 +198,7 @@ def interleaved_ms(fns, rounds=15, reps=10, warmup=2):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def time_shape_c(vecs, boxes, mask, H, W, extra=None):
+def time_shape(vecs, boxes, mask, H, W, extra=None):
     """Median ms per launch, timed in turns, of the kernel, its plain
     version, the library yardstick (torch.bmm of the precomputed
     (N, H*W, O) bf16 coverage with the vecs: the same contraction writing
@@ -205,29 +242,34 @@ def phase_kernel():
         if N > 1 and not bool((k[1] == 0).all()):
             raise AssertionError(f"({name}) masked frame is not zero")
 
-    N, O, D, H, W = SHAPE_C
-    vecs, boxes, mask = raster_inputs(N, O, D, H, torch.bfloat16, 3)
-    ms = time_shape_c(vecs, boxes, mask, H, W)
-    written = N * H * W * D * 2
-    read = vecs.numel() * 2 + boxes.numel() * 4 + mask.numel() * 4
-    bytes_ms = (written + read) / HBM_BYTES_PER_S * 1e3
-    flops_ms = 2 * N * H * W * O * D / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
+    timing, lines = {}, []
+    for name, shape, seed in (("c", SHAPE_C, 3), ("disc", SHAPE_DISC, 5)):
+        N, O, D, H, W = shape
+        vecs, boxes, mask = raster_inputs(N, O, D, H, torch.bfloat16, seed)
+        ms = time_shape(vecs, boxes, mask, H, W)
+        written = N * H * W * D * 2
+        read = vecs.numel() * 2 + boxes.numel() * 4 + mask.numel() * 4
+        bytes_ms = (written + read) / HBM_BYTES_PER_S * 1e3
+        flops_ms = 2 * N * H * W * O * D / BF16_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        lines.append(
+            f"at ({name}) N={N} O={O} D={D} {H}x{W} kernel "
+            f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library "
+            f"torch.bmm {ms['library']:.4f} ms, fill_ of the same bytes "
+            f"{ms['fill']:.4f} ms; bound {bound_ms:.4f} ms (bytes "
+            f"{bytes_ms:.4f}, bf16 flops {flops_ms:.4f}); kernel at "
+            f"{100 * bound_ms / ms['kernel']:.1f}% of its bound, "
+            f"{written / ms['kernel'] / 1e6:.1f} GB/s written")
+        timing[name] = dict(
+            max_abs_err=errs[name], ms=ms["kernel"], plain_ms=ms["plain"],
+            bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            library_ms=ms["library"])
     print("phase 2 kernel vs plain max|diff|: " + " ".join(
         f"({k}) {v:.3e}" for k, v in errs.items()) +
-        f"; masked frames exact zeros; at (c) kernel {ms['kernel']:.4f} ms, "
-        f"plain {ms['plain']:.4f} ms, library torch.bmm {ms['library']:.4f} "
-        f"ms, fill_ of the same bytes {ms['fill']:.4f} ms (medians of 15 "
-        f"samples of 10 launches in turns, CUDA events); bound "
-        f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f}, bf16 flops "
-        f"{flops_ms:.4f}); kernel at {100 * bound_ms / ms['kernel']:.1f}% of "
-        f"its bound, {written / ms['kernel'] / 1e6:.1f} GB/s written")
-    return dict(max_abs_err=errs["c"], ms=ms["kernel"],
-                plain_ms=ms["plain"], bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                library_ms=ms["library"],
-                library="torch.bmm(coverage (N, H*W, O) bf16, vecs (N, O, D)"
-                        " bf16)")
+        "; masked frames exact zeros; medians of 15 samples of 10 launches "
+        "in turns, CUDA events; " + "; ".join(lines))
+    return timing
 
 
 def phase_grad():
@@ -244,8 +286,21 @@ def phase_grad():
     e_v = check_close("dvecs", grads["auto"][0], grads["plain"][0], F32_TOL)
     e_b = check_close("dboxes", grads["auto"][1], grads["plain"][1],
                       dict(rtol=1e-4, atol=1e-4))
+    # The discriminator's call: bf16 vecs that carry a gradient, boxes that
+    # do not (the ground-truth boxes).
+    N, O, D, H, W = SHAPE_DISC
+    vecs, boxes, mask = raster_inputs(N, O, D, H, torch.bfloat16, 6)
+    g = torch.randn(N, H, W, D, device="cuda", dtype=torch.bfloat16)
+    dvs = {}
+    for backend in ("auto", "plain"):
+        v = vecs.clone().requires_grad_(True)
+        out = boxes_to_layout_batch(v, boxes, H, W, mask=mask,
+                                    backend=backend)
+        dvs[backend], = torch.autograd.grad((out.float() * g).sum(), (v,))
+    e_d = check_close("dvecs (disc)", dvs["auto"], dvs["plain"], BF16_TOL)
     print(f"phase 3 gradients through the kernel's autograd.Function vs "
-          f"plain autograd: dvecs {e_v:.3e}, dboxes {e_b:.3e}")
+          f"plain autograd: dvecs {e_v:.3e}, dboxes {e_b:.3e}; at (disc) "
+          f"bf16 dvecs {e_d:.3e}")
 
 
 def phase_small_model():
@@ -423,6 +478,137 @@ def phase_factorized():
           f", conf_pred {flipped:.2%} differ")
 
 
+def run_trainer(cfg, vocab, batch, graph, device=None, backend="auto"):
+    """Two train_steps and one graph_step -> (losses of each step as
+    floats, {name: parameter} after them, the trainer)."""
+    trainer = Trainer(cfg, vocab, device=device)
+    trainer.init(batch)
+    trainer.set_rasterizer_backend(backend)
+    steps = []
+    for _ in range(2):
+        steps.append({k: float(v) for k, v in
+                      trainer.train_step(batch).items()})
+    steps.append({k: float(v) for k, v in
+                  trainer.graph_step(graph).items()})
+    params = {f"{m}.{k}": p.detach().cpu() for m, mod in
+              (("model", trainer.state.model), ("disc", trainer.state.disc))
+              for k, p in mod.named_parameters()}
+    return steps, params, trainer
+
+
+def compare_runs(name, got, want):
+    """Losses (step 1 at STEP1_TOL, later ones at STEP2_TOL) and parameters
+    (PARAM_ATOL) of two run_trainer runs -> (worst loss rel, worst param)."""
+    worst_rel = 0.0
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        tol = STEP1_TOL if i == 0 else STEP2_TOL
+        for k in w:
+            err = abs(g[k] - w[k])
+            if not np.isfinite(g[k]) or \
+                    err > tol["atol"] + tol["rtol"] * abs(w[k]):
+                raise AssertionError(f"{name}: step {i + 1} {k} {g[k]!r} vs "
+                                     f"{w[k]!r}")
+            worst_rel = max(worst_rel, err / max(abs(w[k]), 1e-12))
+    worst_p = max(float((got[1][k] - w).abs().max())
+                  for k, w in want[1].items())
+    if worst_p > PARAM_ATOL:
+        raise AssertionError(f"{name}: parameters differ by {worst_p:.3e} "
+                             f"> {PARAM_ATOL:.1e} after the steps")
+    return worst_rel, worst_p
+
+
+def phase_small_trainer():
+    vocab = get_vocab("cater")
+    out = []
+    for factorized in (True, False):
+        cfg = Config(dataset="cater", factorized_frontend=factorized,
+                     **TRAIN_SMALL).derive(vocab)
+        B = cfg.batch_size
+        batch = make_inputs(cfg, vocab, B, cfg.frames_per_action, seed=0)
+        graph = make_inputs(cfg, vocab, B, 4 * cfg.frames_per_action_graph,
+                            seed=1)
+        cpu = run_trainer(cfg, vocab, batch, graph, device="cpu")
+        KERNEL_LAUNCHES.reset()
+        PLAIN_CALLS.reset()
+        card = run_trainer(cfg, vocab, batch, graph)  # the card by default
+        torch.cuda.synchronize()
+        launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+        # Per train_step: the frozen D of the G step and the D step, and on
+        # the dense frontend the generator's layouts.
+        want = 2 * (2 if factorized else 3)
+        if launches != want or plain != 0:
+            raise AssertionError(f"small trainer: {launches} kernel launches"
+                                 f" (want {want}), {plain} plain calls")
+        if next(card[2].state.model.parameters()).device.type != "cuda":
+            raise AssertionError("the trainer's model is not on the card")
+        KERNEL_LAUNCHES.reset()
+        plain_run = run_trainer(cfg, vocab, batch, graph, backend="plain")
+        if KERNEL_LAUNCHES.n != 0:
+            raise AssertionError("the plain run launched the kernel")
+        e_cpu = compare_runs("card vs CPU", card, cpu)
+        e_plain = compare_runs("kernel vs plain", card, plain_run)
+        out.append(f"{'factorized' if factorized else 'dense'}: {launches} "
+                   f"kernel launches in 2 train_steps; card vs CPU losses "
+                   f"{e_cpu[0]:.2e} rel, params {e_cpu[1]:.2e}; kernel vs "
+                   f"plain losses {e_plain[0]:.2e} rel, params "
+                   f"{e_plain[1]:.2e}")
+    print("phase 8 small fp32 trainer 64x64 (2 train_steps + 1 graph_step,"
+          f" losses within rtol {STEP1_TOL['rtol']:.0e} on the first step "
+          f"and {STEP2_TOL['rtol']:.0e} after, params within "
+          f"{PARAM_ATOL:.0e}): " + "; ".join(out))
+
+
+def phase_train_full():
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **TRAIN_FULL).derive(vocab)
+    B, T = cfg.batch_size, cfg.frames_per_action
+    Tg = 4 * cfg.frames_per_action_graph
+    batch = make_inputs(cfg, vocab, B, T, seed=0)
+    graph = make_inputs(cfg, vocab, B, Tg, seed=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, vocab)
+    trainer.init(batch)
+    setup_s = time.perf_counter() - t0
+
+    def iteration():
+        m = trainer.train_step(batch)
+        m.update(trainer.graph_step(graph))
+        return m
+
+    for _ in range(2):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    runs, metrics = 5, []
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        metrics.append(iteration())
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / runs
+    launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+    peak = torch.cuda.max_memory_allocated()
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    bad = [k for m in metrics for k, v in m.items()
+           if not np.isfinite(float(v))]
+    if bad or trainer.skipped_nan != 0:
+        raise AssertionError(f"non-finite losses {sorted(set(bad))}, "
+                             f"{trainer.skipped_nan} skipped steps")
+    if launches != 2 * runs or plain != 0:
+        raise AssertionError(f"{launches} rasterizer kernel launches and "
+                             f"{plain} plain calls in {runs} train_steps")
+    print(f"phase 9 CATER 256x256 training, default config B={B} T={T} "
+          f"(graph T={Tg}) bf16, VGG and feature matching on: "
+          f"{1e3 * dt:.1f} ms per iteration (train_step + graph_step, mean "
+          f"of {runs} after 2 warm-ups), {B / dt:.3f} training samples/s; "
+          f"rasterizer kernel launches {launches // runs} per train_step, "
+          f"plain calls {plain}; skipped steps 0; peak memory "
+          f"{peak / 2**30:.2f} GiB; setup {setup_s:.1f} s; last losses " +
+          ", ".join(f"{k} {v:.4f}" for k, v in sorted(last.items())))
+    return launches // runs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
@@ -436,13 +622,20 @@ def main():
     launches = phase_full(factorized=False)
     phase_factorized()
     phase_full(factorized=True)
+    phase_small_trainer()
+    per_train_step = phase_train_full()
+    disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
         "route": "cuda",
         "source": "ag2video_torch/csrc/rasterize.cu",
         "replaces": "ag2video_tpu/ops/pallas/rasterize_kernel.py:33",
         "launches": launches,
-    }, **timing)]}))
+    }, **timing["c"],
+        library="torch.bmm(coverage (N, H*W, O) bf16, vecs (N, O, D) bf16)",
+        launches_per_train_step=per_train_step,
+        disc_shape="N=9 O=12 D=256 256x256 bf16",
+        **{f"disc_{k}": v for k, v in disc.items()})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

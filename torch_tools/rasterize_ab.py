@@ -9,7 +9,7 @@ unpacked with `git archive`) is compiled, all at once, with the port's
 nvcc flags and
 called through the same C function, `ag_rasterize_forward`. Every build is
 first held against the plain version at chip_smoke.py's BF16_TOL. Then the
-other builds are timed in turns with chip_smoke.py's `time_shape_c`: the
+other builds are timed in turns with chip_smoke.py's `time_shape`: the
 checkout's kernel ("kernel"), its plain version, `torch.bmm` of the
 precomputed coverage and a `fill_` of the output's bytes (medians of 15
 samples of 10 launches queued back to back, CUDA events). Prints the card's
@@ -86,7 +86,7 @@ def run(others, unchecked=()) -> dict:
             if name not in unchecked:
                 cs.check_close(name, out, ref, cs.BF16_TOL)
             fns[name] = launch
-        ms = cs.time_shape_c(vecs, boxes, mask, H, W, extra=fns)
+        ms = cs.time_shape(vecs, boxes, mask, H, W, extra=fns)
     written = N * H * W * D * 2
     bound = written / cs.HBM_BYTES_PER_S * 1e3
     for name, t in ms.items():
