@@ -1,5 +1,6 @@
 """ImageNet normalisation of frames (the part of
-ag2video_tpu/data/transforms.py that generation needs, held equal to it by
+ag2video_tpu/data/transforms.py that generation and the synthetic dataset
+need, held equal to it by
 tests/test_torch_copies.py). The clip transforms come with the dataset
 loaders (ROADMAP)."""
 

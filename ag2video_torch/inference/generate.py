@@ -7,9 +7,10 @@ boxes (or from the ground-truth boxes with use_gt=True).
 
 `GenerationSession(run_dir)` renders a trained run: it reads the run's
 `run_args.json`, builds the model on the card (or on `device`), and `load()`
-reads the run's exported weights, an `itr_<t>.npz` of the flax variables
-(torch_tools/export_run_weights.py writes it from the JAX run's orbax
-checkpoint). Its `generate` returns numpy arrays as the JAX session's does;
+reads the run's newest weights: a checkpoint of the port's own training
+run (an `itr_<t>/` directory, train/checkpoint.py), or an `itr_<t>.npz` of
+flax variables exported from a JAX run's orbax checkpoint
+(torch_tools/export_run_weights.py). Its `generate` returns numpy arrays as the JAX session's does;
 `run_action_sweep` and `save_test_outputs` write the same file tree as the
 JAX session's methods.
 """
@@ -28,6 +29,7 @@ import torch
 from ag2video_torch.config import Config
 from ag2video_torch.inference import actions as action_lib
 from ag2video_torch.models.meta import AG2VideoModel
+from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.utils.vis import plot_vid, save_gif, save_video_pickle
 from ag2video_torch.weights import from_flax, load_flax_npz
 
@@ -102,17 +104,23 @@ def generate(model: torch.nn.Module, batch: Any,
 
 
 def latest_weights(run_dir: str) -> str:
-    """The newest `itr_<t>.npz` in `run_dir`."""
-    best, best_t = None, -1
-    for p in glob.glob(os.path.join(run_dir, "itr_*.npz")):
+    """The newest weights in `run_dir`: an `itr_<t>/` checkpoint of the
+    port's (train/checkpoint.py) or an exported `itr_<t>.npz`; at the same
+    t the port's checkpoint wins."""
+    found = {}
+    for p in glob.glob(os.path.join(os.path.abspath(run_dir), "itr_*.npz")):
         m = re.match(r"itr_(\d+)\.npz$", os.path.basename(p))
-        if m and int(m.group(1)) > best_t:
-            best, best_t = p, int(m.group(1))
-    if best is None:
+        if m:
+            found[(int(m.group(1)), 0)] = p
+    ckpt = ckpt_lib.latest_checkpoint(run_dir)
+    if ckpt is not None:
+        found[(int(os.path.basename(ckpt)[len("itr_"):]), 1)] = ckpt
+    if not found:
         raise FileNotFoundError(
-            f"no itr_*.npz weights under {run_dir}: export the run's "
-            f"checkpoint with torch_tools/export_run_weights.py")
-    return best
+            f"no itr_<t>/ checkpoint or itr_*.npz weights under {run_dir}: "
+            f"export a JAX run's checkpoint with "
+            f"torch_tools/export_run_weights.py")
+    return found[max(found)]
 
 
 class GenerationSession:
@@ -121,9 +129,10 @@ class GenerationSession:
     def __init__(self, run_dir: str, checkpoint: Optional[str] = None,
                  overrides: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        """checkpoint: an `itr_<t>.npz`, or a directory whose newest one is
-        taken (default: `run_dir`). device: as AG2VideoModel's, the CUDA
-        card when None."""
+        """checkpoint: an `itr_<t>/` checkpoint of the port, an
+        `itr_<t>.npz`, or a directory whose newest weights are taken
+        (default: `run_dir`). device: as AG2VideoModel's, the CUDA card when
+        None."""
         cfg, vocab = Config.load_run_args(run_dir)
         if overrides:
             cfg = cfg.replace(**overrides)
@@ -136,12 +145,16 @@ class GenerationSession:
         self._loaded = False
 
     def load(self) -> "GenerationSession":
-        """Read the weights strictly (every JAX leaf used, every port tensor
-        filled, like the reference's load_state_dict(strict=True))."""
+        """Read the weights strictly (every saved tensor used, every port
+        tensor filled, like the reference's load_state_dict(strict=True))."""
         path = self._checkpoint
-        if os.path.isdir(path):
+        if os.path.isdir(path) and not ckpt_lib.is_port_checkpoint(path):
             path = latest_weights(path)
-        load_flax_npz(path, self.model)
+        if ckpt_lib.is_port_checkpoint(path):
+            state = ckpt_lib.load_state_file(path)["model"]
+            self.model.load_state_dict(state, strict=True)
+        else:
+            load_flax_npz(path, self.model)
         self._loaded = True
         log.info("loaded %s", path)
         return self

@@ -1,0 +1,119 @@
+"""Training CLI (port of scripts/train.py; reference scripts/train.py).
+
+    python -m ag2video_torch.scripts.train --dataset synthetic \
+        --image_size 64,64 --num_iterations 1000 --output_dir output/run1
+
+Flags are generated from the port's `Config` (names as the reference's,
+data/args.py), plus `--device` (default: the CUDA card, which raises
+without one; `cpu` for the CPU). The run directory is self-describing:
+`run_args.json` (+ vocab), `metrics.jsonl` and a TensorBoard event file,
+and `itr_<t>/` checkpoints, which `inference.GenerationSession(output_dir)`
+renders. `--restore_checkpoint 1` resumes from `--checkpoint_name` if it
+is a path, else from the newest `itr_*` under `--output_dir`.
+
+Not ported (ROADMAP.md): the CATER cache pre-warmer flags (no CATER loader
+yet), `--debug_nans` (a JAX flag), multi-host initialisation and the
+device mesh (data parallel comes later).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+from typing import Optional, Sequence
+
+log = logging.getLogger("train")
+
+
+def int_tuple(s):
+    return tuple(int(i) for i in s.split(","))
+
+
+def bool_flag(s):
+    if s in ("1", "true", "True"):
+        return True
+    if s in ("0", "false", "False"):
+        return False
+    raise ValueError(f'Invalid bool flag "{s}"')
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Flags from the Config dataclass, plus --device."""
+    from ag2video_torch.config import Config
+
+    p = argparse.ArgumentParser(description=__doc__)
+    for f in dataclasses.fields(Config):
+        name = f"--{f.name}"
+        if f.type in ("bool", bool):
+            p.add_argument(name, type=bool_flag, default=f.default)
+        elif f.name == "image_size":
+            p.add_argument(name, type=int_tuple, default=f.default)
+        elif f.type in ("int", int):
+            p.add_argument(name, type=int, default=f.default)
+        elif f.type in ("float", float):
+            p.add_argument(name, type=float, default=f.default)
+        else:
+            p.add_argument(name, type=str, default=f.default)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default the CUDA card (cpu: the CPU)")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse `argv`, build the data, the trainer and the run directory, and
+    train -> the Trainer."""
+    from ag2video_torch.config import Config
+    from ag2video_torch.data.registry import Loader, get_dataset
+    from ag2video_torch.train.checkpoint import latest_checkpoint
+    from ag2video_torch.train.state import param_count
+    from ag2video_torch.train.trainer import Trainer
+    from ag2video_torch.utils.logging import MetricsWriter
+
+    args = build_parser().parse_args(argv)
+    cfg = Config.from_dict(vars(args))
+
+    train_ds = get_dataset(cfg.dataset, "train", cfg)
+    graph_ds = get_dataset(cfg.dataset, "train_graph", cfg)
+    val_ds = get_dataset(cfg.dataset, "val", cfg)
+    vocab = train_ds.vocab
+    cfg = cfg.derive(vocab)  # reference init_args (data/args.py:184-207)
+
+    train_loader = Loader(train_ds, cfg, shuffle=True)
+    graph_loader = Loader(graph_ds, cfg, shuffle=True)
+    val_loader = Loader(val_ds, cfg, shuffle=cfg.shuffle_val, drop_last=False)
+
+    trainer = Trainer(cfg, vocab, device=args.device)
+    trainer.init(next(train_loader.epoch(0)))
+    log.info("G params: %.2fM  D params: %.2fM",
+             param_count(trainer.state.model) / 1e6,
+             param_count(trainer.state.disc) / 1e6)
+
+    if cfg.restore_checkpoint:
+        path = cfg.checkpoint_name
+        if not os.path.exists(path):
+            path = latest_checkpoint(cfg.output_dir)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no checkpoint at {cfg.checkpoint_name!r} and no itr_* "
+                    f"under {cfg.output_dir!r}")
+        trainer.restore_checkpoint(path)
+        log.info("resumed from %s at step %d", path, trainer.state.step)
+
+    writer = MetricsWriter(cfg.output_dir) if cfg.output_dir else None
+    if cfg.output_dir:
+        cfg.save_run_args(cfg.output_dir, vocab)
+    try:
+        trainer.fit(train_loader, graph_loader, val_loader,
+                    metrics_writer=writer, timing=cfg.timing)
+    finally:
+        if writer is not None:
+            writer.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    main()

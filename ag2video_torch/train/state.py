@@ -8,6 +8,10 @@ model; the discriminator owns a third Adam (meta_models.py:70). Each is a
 rule is optax.adam's; the learning rate follows the JAX package's
 schedule (`learning_rate`) by the optimizer's own count of updates, as
 optax counts them.
+
+A light resume re-initialises the three Adams from the restored weights
+(`reset_optimizers`): the moments and the schedule's count start at 0, as
+the JAX light resume's fresh optax states do.
 """
 
 from __future__ import annotations
@@ -78,6 +82,16 @@ def make_optimizers(cfg: Config, model: nn.Module, disc: nn.Module):
     return (ScheduledAdam(graph, cfg),
             ScheduledAdam(gen, cfg, 0.5 if ttur else 1.0),
             ScheduledAdam(disc.parameters(), cfg, 2.0 if ttur else 1.0))
+
+
+def reset_optimizers(state: "TrainState", cfg: Config) -> None:
+    """Fresh Adams over `state`'s (restored) weights: no moments, count 0."""
+    state.opt_graph, state.opt_gen, state.opt_d = make_optimizers(
+        cfg, state.model, state.disc)
+
+
+def param_count(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
 
 
 @dataclasses.dataclass

@@ -19,14 +19,25 @@ loss takes no optimizer step and restores the norm state the forward
 wrote, so params, optimizer state and norm state stay as they were; the
 `skipped_nan` counter goes up once per step that skipped anything.
 
+The training run (reference scripts/train.py:398-513; JAX trainer.py:304-637)
+is `fit`: the loop over the loaders, the validation passes (`check_model`:
+layout IoU, and the synthetic fidelity score of the generated frames),
+checkpoints (`train/checkpoint.py`), the metrics stream and step timing.
+
 `Trainer(cfg, vocab)` runs on the CUDA card and raises without one;
-`device="cpu"` runs on the CPU (the tests do). Not ported yet: checkpoints,
-`fit`, the validation pass (ROADMAP).
+`device="cpu"` runs on the CPU (the tests do). Not ported: the Inception
+Score of the val pass (`eval/inception.py`, ROADMAP.md), data parallel, and
+two pieces of TPU plumbing, the host-RSS watchdog (`rss_watchdog_gb`) and
+the donation-miscompile warning (`donate_step`): both stay in the config
+and are ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
+import time
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -37,7 +48,11 @@ from ag2video_torch.config import Config
 from ag2video_torch.losses.loss_model import (compute_discriminator_loss,
                                               compute_generator_loss,
                                               compute_graph_loss)
+from ag2video_torch.ops.metrics import iou_stats
+from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.train.state import TrainState, create_train_state
+
+log = logging.getLogger(__name__)
 
 BATCH_KEYS = ("imgs", "objs", "triplets", "actions", "boxes")
 
@@ -71,6 +86,16 @@ class NormState:
 
 def _finite(x: torch.Tensor) -> bool:
     return bool(torch.isfinite(x))
+
+
+# The exit code (EX_TEMPFAIL, "restart me") of a run that stopped at its
+# wall-clock deadline: a wrapper resumes it with --restore_checkpoint 1.
+DEADLINE_RC = 75
+# Where the Inception Score's pretrained weights would be (the JAX
+# package's eval/inception.py DEFAULT_WEIGHTS).
+INCEPTION_WEIGHTS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "assets", "inception_v3.npz")
 
 
 class Trainer:
@@ -214,3 +239,263 @@ class Trainer:
         else:
             st.skipped_nan += 1
         return {f"Graph/{k}": v.detach() for k, v in losses.items()}
+
+    # ------------------------------------------------------------------
+    def _eval_forward(self, b: Dict[str, torch.Tensor], use_gt: bool):
+        """The val forward (reference check_model, train.py:136-252):
+        test_mode=True; with use_gt=False only the first frame's boxes seed
+        the rollout. -> (imgs_pred, boxes_pred clipped to [0, 1], the IoU
+        sums of frames 1.. over the real objects)."""
+        boxes = b["boxes"]
+        boxes_in = boxes if use_gt else torch.cat(
+            [boxes[:, :1], torch.zeros_like(boxes[:, 1:])], 1)
+        with torch.no_grad():
+            out = self.state.model(b["imgs"], b["objs"], b["triplets"],
+                                   b["actions"], boxes_in, test_mode=True,
+                                   use_gt=use_gt, train=False)
+        boxes_pred = out["boxes_pred"].clamp(0.0, 1.0)
+        # Mask: strip frame 0, the dummy and the padding (train.py:180-197).
+        real = b["objs"][..., 0] != 0
+        mask = torch.broadcast_to(real[:, None, :], boxes[:, 1:].shape[:-1])
+        stats = iou_stats(boxes_pred[:, 1:], boxes[:, 1:], mask)
+        return out["imgs_pred"], boxes_pred, stats
+
+    def eval_batch(self, batch: Any, use_gt: bool):
+        """The val forward on one batch -> (imgs_pred, boxes_pred,
+        (sum_iou, count@0.5, count@0.3, n_valid)), tensors on the device."""
+        return self._eval_forward(self._batch(batch), use_gt)
+
+    def spectral_stats(self) -> Dict[str, float]:
+        """Spectral-norm telemetry: min/mean/max of every stored power-
+        iteration sigma in G and D (the JAX package's `sigma` leaves; the
+        factorized frontend's own spectral norm stores none)."""
+        out: Dict[str, float] = {}
+        for tag, module in (("G", self.state.model), ("D", self.state.disc)):
+            sigmas = [b.reshape(-1) for n, b in module.named_buffers()
+                      if n.endswith("spectral.sigma")]
+            if not sigmas:
+                continue
+            s = torch.cat(sigmas).cpu().numpy()
+            out[f"sigma/{tag}_min"] = float(s.min())
+            out[f"sigma/{tag}_mean"] = float(s.mean())
+            out[f"sigma/{tag}_max"] = float(s.max())
+        return out
+
+    def check_model(self, loader, use_gt: bool,
+                    max_samples: Optional[int] = None, fidelity_score=None):
+        """Validation pass (reference check_model, train.py:136-252) ->
+        (mean metrics, samples dict for the video artifacts). The IoU
+        triple is reported by the use_gt=False pass only; `fidelity_score`
+        (eval.backbone.FidelityScore) scores the generated frames, the
+        ground-truth seed frames dropped, against the same clips' real
+        frames."""
+        from ag2video_torch.eval.backbone import presence_labels
+
+        max_samples = max_samples or self.cfg.num_val_samples
+        tot = np.zeros(4)
+        samples = {}
+        n_seen = 0
+        if fidelity_score is not None:
+            fidelity_score.clean()
+        ncond = self.cfg.n_frames_G - 1  # conditioning frames pass through
+        for batch in loader.epoch(0):
+            b = self._batch(batch)
+            imgs_pred, boxes_pred, stats = self._eval_forward(b, use_gt)
+            tot += np.array([float(s) for s in stats])
+            if fidelity_score is not None:
+                fake = imgs_pred[:, ncond:]
+                T = fake.shape[1]
+                objs = np.asarray(batch.objs)  # (B, O, [shape, color, size])
+                pres = presence_labels(
+                    {"shape": objs[..., 0], "color": objs[..., 1]})
+                fidelity_score.add_fake(fake.reshape(-1, *fake.shape[2:]),
+                                        presence=np.repeat(pres, T, axis=0))
+                real = b["imgs"][:, ncond:]
+                fidelity_score.add_real(real.reshape(-1, *real.shape[2:]))
+            if not samples:
+                samples = {
+                    "video_id": batch.video_ids,
+                    "vids": np.asarray(batch.imgs),
+                    "gt_boxes": np.asarray(batch.boxes),
+                    "pred_boxes": boxes_pred.float().cpu().numpy(),
+                    "pred_vids": imgs_pred.float().cpu().numpy(),
+                }
+            n_seen += batch.imgs.shape[0]
+            if n_seen >= max_samples:
+                break
+        denom = max(tot[3], 1.0)
+        # The layout rollout ignores boxes_in past the seed frame, so the
+        # IoU triple is the same in both modes: only use_gt=False reports
+        # it (use_gt=True scores generated frames).
+        mean_losses = {} if use_gt else {
+            "avg_iou": tot[0] / denom,
+            "total_iou_05": tot[1] / denom,
+            "total_iou_03": tot[2] / denom,
+        }
+        if fidelity_score is not None:
+            mean_losses.update(fidelity_score.compute())
+        return mean_losses, samples
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, output_dir: str, t: int, epoch: int,
+                        block: bool = True, light: bool = False) -> str:
+        return ckpt_lib.save_checkpoint(output_dir, t, epoch, self.state,
+                                        self.cfg, self.vocab, block=block,
+                                        light=light)
+
+    def restore_checkpoint(self, path: str, for_inference: bool = False):
+        return ckpt_lib.restore_checkpoint(path, self.state, self.cfg,
+                                           for_inference=for_inference)
+
+    # ------------------------------------------------------------------
+    def _scorers(self, val_loader):
+        """The val pass's fidelity scorer (None without one). The Inception
+        Score is not ported: with no pretrained asset the JAX trainer skips
+        it with a warning, as here; with one, this raises."""
+        cfg = self.cfg
+        if val_loader is None or cfg.graph_only:
+            return None
+        if cfg.val_inception:
+            if os.path.exists(INCEPTION_WEIGHTS):
+                raise NotImplementedError(
+                    "the val Inception Score (eval/inception.py) is not "
+                    "ported yet: ROADMAP.md 'Modules not yet ported'; pass "
+                    "--val_inception 0")
+            log.warning(
+                "no pretrained InceptionV3 asset: SKIPPING the val "
+                "Inception Score — a random-init backbone scores a "
+                "constant ~1.0 (zero signal) and costs an inception "
+                "forward per val frame; port weights via "
+                "scripts/port_torch_weights.py to enable it")
+        if not (cfg.val_fidelity and cfg.dataset == "synthetic"):
+            return None
+        from ag2video_torch.eval.backbone import (DEFAULT_WEIGHTS,
+                                                  FidelityScore,
+                                                  load_backbone)
+        path = cfg.fidelity_backbone or DEFAULT_WEIGHTS
+        loaded = load_backbone(path)
+        if loaded is None:
+            log.warning(
+                "no synthetic fidelity backbone asset (%s): the use_gt "
+                "val pass reports no pixel-quality metric — train one "
+                "with `python -m scripts.train_backbone`", path)
+            return None
+        return FidelityScore(loaded[0], device=self.device)
+
+    def _validate(self, val_loader, t: int, fidelity_score, metrics_writer):
+        """Both validation passes at step t, their metrics and videos."""
+        from ag2video_torch.utils.vis import save_images
+
+        for use_gt in (True, False):
+            m, samples = self.check_model(
+                val_loader, use_gt,
+                fidelity_score=fidelity_score if use_gt else None)
+            tag = "use_gt" if use_gt else "no_use_gt"
+            log.info("val[%s] @%d: %s", tag, t, m or "(artifacts only)")
+            if metrics_writer and m:
+                metrics_writer.write(t, {f"{tag}/{k}": v
+                                         for k, v in m.items()})
+            # Per-checkpoint videos (reference save_images, train.py:415,
+            # 422): gifs need imageio, so they are best-effort.
+            try:
+                save_images(self.cfg.output_dir, t, samples,
+                            dir_name="gt_val" if use_gt else "val")
+            except Exception as e:
+                log.warning("save_images failed: %s", e)
+
+    def fit(self, train_loader, graph_loader, val_loader=None,
+            num_iterations: Optional[int] = None,
+            log_every: Optional[int] = None,
+            checkpoint_every: Optional[int] = None,
+            metrics_writer=None, timing: bool = False):
+        """The reference main loop (train.py:398-513), host side; returns the
+        last iteration's metrics.
+
+        Saves at t % checkpoint_every == 0 (async; every
+        full_checkpoint_every_n-th one full, the rest light), except at the
+        step it resumed from, each followed by both validation passes; logs
+        every log_every steps; saves a full checkpoint at the end if an
+        iteration ran. `profile_steps` traces steps [start+2, start+2+N)
+        into <output_dir>/profile. Past `wall_deadline` it saves a full
+        checkpoint (when there is an output_dir) and exits with DEADLINE_RC.
+        `rss_watchdog_gb` and `donate_step` (TPU plumbing) are ignored.
+        """
+        from ag2video_torch.utils.profiling import (StepTimer, start_trace,
+                                                    stop_trace)
+
+        cfg = self.cfg
+        fidelity_score = self._scorers(val_loader)
+        num_iterations = num_iterations or cfg.num_iterations
+        log_every = log_every or cfg.print_every
+        checkpoint_every = checkpoint_every or cfg.checkpoint_every
+        timer = StepTimer() if timing else None
+        profile_dir = os.path.join(cfg.output_dir or ".", "profile")
+
+        train_iter = train_loader.forever() if not cfg.graph_only else None
+        graph_iter = graph_loader.forever()
+        t0 = time.time()
+        last: Dict[str, Any] = {}
+        t = start_t = int(self.state.step)
+        profile_at = (start_t + 2) if cfg.profile_steps else None
+        prof = None
+        while t < num_iterations:
+            if profile_at is not None and prof is None and t >= profile_at:
+                prof = start_trace()
+            elif prof is not None and t >= profile_at + cfg.profile_steps:
+                log.info("wrote trace %s", stop_trace(prof, profile_dir))
+                prof, profile_at = None, None
+            # Save and validate on the cadence, but not at the resume point
+            # (t == start_t > 0): that checkpoint was just read.
+            if (checkpoint_every and t % checkpoint_every == 0
+                    and cfg.output_dir and (t == 0 or t > start_t)):
+                n_full = max(cfg.full_checkpoint_every_n, 1)
+                light = (t // checkpoint_every) % n_full != 0
+                self.save_checkpoint(cfg.output_dir, t, 0, block=False,
+                                     light=light)
+                if val_loader is not None:
+                    self._validate(val_loader, t, fidelity_score,
+                                   metrics_writer)
+            if not cfg.graph_only:
+                last.update(self.train_step(next(train_iter)))
+            last.update(self.graph_step(next(graph_iter)))
+            if cfg.graph_only:
+                t += 1
+                self.state.step = t
+            else:
+                t = int(self.state.step)
+            if timer is not None:
+                timer.tick()
+
+            if t % log_every == 0:
+                vals = {k: float(v) for k, v in last.items()}
+                if not cfg.graph_only:
+                    vals.update(self.spectral_stats())
+                    vals["skipped_nan"] = float(self.state.skipped_nan)
+                if timer is not None:
+                    vals.update(timer.stats())
+                rate = t / max(time.time() - t0, 1e-9)
+                log.info("t=%d/%d (%.2f it/s) %s", t, num_iterations, rate,
+                         {k: round(v, 4) for k, v in vals.items()})
+                if metrics_writer:
+                    metrics_writer.write(t, vals)
+                if cfg.wall_deadline and time.time() >= cfg.wall_deadline:
+                    log.error("wall deadline %.0f reached — %s, exiting "
+                              "rc=%d for auto-resume", cfg.wall_deadline,
+                              f"saving a FULL checkpoint at t={t}"
+                              if cfg.output_dir else "no output_dir to "
+                              "save into", DEADLINE_RC)
+                    if prof is not None:
+                        stop_trace(prof, profile_dir)
+                    if cfg.output_dir:
+                        self.save_checkpoint(cfg.output_dir, t, 0)
+                    ckpt_lib.wait_for_saves()
+                    raise SystemExit(DEADLINE_RC)
+        # The in-loop cadence saves at an iteration's start, so the state
+        # after the last iterations is saved here (the reference saves on
+        # exit, train.py:525-528), unless no iteration ran.
+        if prof is not None:
+            log.info("wrote trace %s", stop_trace(prof, profile_dir))
+        if cfg.output_dir and checkpoint_every and t > start_t:
+            self.save_checkpoint(cfg.output_dir, t, 0)
+        ckpt_lib.wait_for_saves()  # commit any in-flight async save
+        return last

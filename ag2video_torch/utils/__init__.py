@@ -1,1 +1,2 @@
-"""Utilities: visualization artifacts."""
+"""Utilities: visualization artifacts, the metrics stream (JSONL and a
+TensorBoard event file), step timing and traces."""

@@ -1,13 +1,15 @@
 """Visualization artifacts (port of ag2video_tpu/utils/vis.py, held equal
 to it by tests/test_torch_copies.py): frames with boxes drawn, gifs, and the
-{'image','box'} pickle consumed by the LPIPS pair scorer. `imageio` is
-imported only inside `save_gif`, so nothing else here needs it."""
+{'image','box'} pickle consumed by the LPIPS pair scorer, and the
+per-checkpoint validation videos (`save_images`). `imageio` is imported
+only inside `save_gif`, so nothing else here needs it; `save_images` writes
+gifs, so it needs it too (the training loop calls it best-effort)."""
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -61,3 +63,21 @@ def save_video_pickle(path: str, video: np.ndarray, boxes: np.ndarray) -> str:
     with open(path, "wb") as f:
         pickle.dump({"image": video, "box": boxes}, f)
     return path
+
+
+def save_images(output_dir: str, t: int, samples: Dict, dir_name: str,
+                max_videos: int = 4) -> None:
+    """Per-val-checkpoint artifacts (reference save_images, models/vis.py:47-118):
+    GT w/ GT boxes, GT w/ pred boxes, generated w/ both box sets."""
+    base = os.path.join(output_dir, dir_name, f"itr_{t}")
+    n = min(max_videos, len(samples.get("video_id", [])))
+    for i in range(n):
+        vid = samples["vids"][i]
+        gt_boxes = samples["gt_boxes"][i]
+        pred_boxes = samples["pred_boxes"][i]
+        gen = samples["pred_vids"][i]
+        vid_id = samples["video_id"][i]
+        save_gif(plot_vid(vid, gt_boxes), os.path.join(base, f"{vid_id}_gt_gtbox.gif"))
+        save_gif(plot_vid(vid, pred_boxes), os.path.join(base, f"{vid_id}_gt_predbox.gif"))
+        save_gif(plot_vid(gen, gt_boxes), os.path.join(base, f"{vid_id}_gen_gtbox.gif"))
+        save_gif(plot_vid(gen, pred_boxes), os.path.join(base, f"{vid_id}_gen_predbox.gif"))

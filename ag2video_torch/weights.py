@@ -31,9 +31,14 @@ the layout of flax_npz.py (written by torch_tools/export_run_weights.py).
 The same mapping loads the discriminator (`gcn_step/*` under its scan,
 `fc_objs_vecs`, `discriminator_{i}/model{n}/...` and its `spectral`
 collection) and the VGG (`conv_{i}`). `trainer_from_flax(state, trainer)`
-fills a Trainer's model, discriminator and VGG from a JAX TrainState's
-params / model_state / d_params / d_state / vgg_params, strictly; the
-optimizer moments are not carried, so both sides start from step 0.
+carries a whole JAX TrainState into a Trainer, strictly: the model,
+discriminator and VGG from params / model_state / d_params / d_state /
+vgg_params; `step`, `epoch` and `skipped_nan`; and the three optax Adam
+states. Each optax state's `mu` / `nu` (parameter trees, with MaskedNode
+where `optax.masked` leaves a subtree to the other optimizer) become
+`exp_avg` / `exp_avg_sq` of exactly the parameters in that Adam's
+`param_groups`, and its `count` becomes torch's `step` and
+`ScheduledAdam.count`, so a JAX run's state resumes training here.
 """
 
 from __future__ import annotations
@@ -121,9 +126,77 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+def _field(node: Any, name: str) -> Any:
+    if isinstance(node, Mapping):
+        return node.get(name)
+    return getattr(node, name, None) if hasattr(node, "_fields") else None
+
+
+def adam_state(opt_state: Any) -> Any:
+    """The one optax ScaleByAdamState (count, mu, nu) inside an optimizer
+    state: nested namedtuples, or the mappings of
+    flax.serialization.to_state_dict."""
+    found = []
+
+    def walk(node):
+        if _field(node, "mu") is not None and _field(node, "nu") is not None:
+            found.append(node)
+        elif isinstance(node, Mapping):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise KeyError(f"expected one Adam state (mu, nu) in the optimizer "
+                       f"state, found {len(found)}")
+    return found[0]
+
+
+def _unmasked(tree: Any) -> Any:
+    """`tree` without optax.masked's MaskedNode leaves (empty tuples, or
+    empty mappings after to_state_dict)."""
+    if isinstance(tree, Mapping):
+        out = {k: _unmasked(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items()
+                if not (isinstance(v, (tuple, Mapping)) and len(v) == 0)}
+    return tree
+
+
+def adam_from_optax(opt_state: Any, opt: torch.optim.Optimizer,
+                    module: nn.Module) -> None:
+    """Fill `opt` (a ScheduledAdam over parameters of `module`) from an
+    optax Adam state, strictly: every parameter of `opt` gets its moments
+    and every unmasked leaf of the optax state is used."""
+    adam = adam_state(opt_state)
+    count = int(np.asarray(_field(adam, "count")))
+    mu = flax_to_state_dict({"params": _unmasked(_field(adam, "mu"))})
+    nu = flax_to_state_dict({"params": _unmasked(_field(adam, "nu"))})
+    names = {id(p): n for n, p in module.named_parameters()}
+    params = [p for g in opt.param_groups for p in g["params"]]
+    wanted = sorted(names[id(p)] for p in params)
+    if wanted != sorted(mu) or wanted != sorted(nu):
+        raise KeyError(f"optax moments vs the optimizer's parameters: "
+                       f"{sorted(set(mu) ^ set(wanted))[:8]}")
+    opt.state.clear()
+    for p in params:
+        n = names[id(p)]
+        if tuple(mu[n].shape) != tuple(p.shape):
+            raise ValueError(f"{n}: optax moment shape {tuple(mu[n].shape)}"
+                             f" vs parameter {tuple(p.shape)}")
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[n].to(p.device, p.dtype),
+            "exp_avg_sq": nu[n].to(p.device, p.dtype)}
+    opt.count = count
+
+
 def trainer_from_flax(state: Any, trainer) -> Any:
     """Load a JAX TrainState (or a mapping with its fields) into `trainer`
-    (an initialised ag2video_torch.train.Trainer), strictly; returns it."""
+    (an initialised ag2video_torch.train.Trainer), strictly: weights,
+    counters and the three Adam states; returns it."""
     get = (lambda k: state[k]) if isinstance(state, Mapping) \
         else (lambda k: getattr(state, k))
     st = trainer.state
@@ -135,4 +208,10 @@ def trainer_from_flax(state: Any, trainer) -> Any:
                        f"VGG in the trainer: {st.vgg is not None}")
     if vgg is not None:
         from_flax({"params": vgg}, st.vgg)
+    adam_from_optax(get("opt_graph_state"), st.opt_graph, st.model)
+    adam_from_optax(get("opt_gen_state"), st.opt_gen, st.model)
+    adam_from_optax(get("opt_d_state"), st.opt_d, st.disc)
+    st.step = int(np.asarray(get("step")))
+    st.epoch = int(np.asarray(get("epoch")))
+    st.skipped_nan = int(np.asarray(get("skipped_nan")))
     return trainer

@@ -38,13 +38,31 @@ Phases, each printing one line (any failure raises and exits nonzero):
    the VGG loss on, seeded random weights): 2 warm-up and 5 timed
    iterations (`train_step` + `graph_step`): finite losses, no skipped
    step, exactly 2 rasterizer kernel launches and no plain call per
-   `train_step`, ms per iteration, training samples/s and peak memory.
+   `train_step`, ms per iteration, training samples/s and peak memory;
+10. the training run at full width: `python -m ag2video_torch.scripts.train`
+   (`main`) on the synthetic dataset at 256x256 with the Config defaults
+   (phase 9's configuration on the synthetic vocabulary, the fidelity
+   score from assets/synthetic_backbone.npz), cut to 6 iterations, a save
+   every 3 (full, light, full), validation on 6 clips: the metrics stream,
+   the validation metrics, the checkpoints and the run directory, 2
+   rasterizer kernel launches per `train_step` and no plain call, the
+   newest checkpoint restored exactly into a fresh Trainer that then takes
+   the same step as the live one, and a `GenerationSession` of the run
+   directory that renders what the live trainer renders; `fit`'s ms per
+   iteration over the run's window (saves and validation included) and
+   its p50 beside phase 9's, samples/s, `fit` with no save and no
+   validation against fixed batches in turns, peak memory, the seconds of
+   each validation pass, each save's size, fetch and write (and an async
+   full save with the Adam moments after the loop), and the loaders' own
+   ms per batch.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import os
 import statistics
@@ -65,7 +83,9 @@ from ag2video_torch.ops._kernels import rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
+from ag2video_torch.scripts.train import main as train_main
 from ag2video_torch.train import Trainer
+from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.weights import init_params
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
@@ -110,6 +130,15 @@ PARAM_ATOL = 5 * TRAIN_SMALL["learning_rate"]
 # 4-frame clips, 4 * 4-frame graph clips, 12 objects / triplets, 4
 # actions, factorized frontend, D and losses as configured), in bf16.
 TRAIN_FULL = dict(image_size=(256, 256), compute_dtype="bfloat16")
+# Phase 10: the training CLI with the Config defaults on the synthetic
+# dataset at 256x256, cut in length only.
+FIT_ARGS = ["--dataset", "synthetic", "--image_size", "256,256",
+            "--num_iterations", "6", "--checkpoint_every", "3",
+            "--full_checkpoint_every_n", "2", "--num_val_samples", "6",
+            "--print_every", "3", "--timing", "1"]
+# The run's session against the live trainer: the same weights through the
+# same forward on one card.
+SESSION_TOL = F32_TOL
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "torch_tools", "data", "reference_factorized_32.npz")
 
@@ -606,7 +635,283 @@ def phase_train_full():
           f"plain calls {plain}; skipped steps 0; peak memory "
           f"{peak / 2**30:.2f} GiB; setup {setup_s:.1f} s; last losses " +
           ", ".join(f"{k} {v:.4f}" for k, v in sorted(last.items())))
-    return launches // runs
+    return launches // runs, 1e3 * dt
+
+
+@contextlib.contextmanager
+def timed_method(cls, name, seconds):
+    """Append the seconds of every call of `cls.name` to `seconds`."""
+    orig = getattr(cls, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(cls, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(cls, name, orig)
+
+
+def read_metrics(run_dir):
+    """metrics.jsonl -> {step: merged record}."""
+    out = {}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["step"], {}).update(rec)
+    return out
+
+
+def check_finite(where, rec, keys):
+    for k in keys:
+        if k not in rec or not np.isfinite(rec[k]):
+            raise AssertionError(f"{where}: {k} = {rec.get(k)!r}")
+
+
+def module_state(trainer):
+    """Every parameter and buffer of the trainer's models, by name."""
+    st = trainer.state
+    return {f"{m}.{k}": v for m, mod in (("model", st.model),
+                                         ("disc", st.disc), ("vgg", st.vgg))
+            if mod is not None for k, v in mod.state_dict().items()}
+
+
+def check_restored(live, fresh):
+    """The restored trainer equals the live one exactly: every tensor, every
+    Adam moment and count, step and skipped_nan -> number of tensors."""
+    a, b = module_state(live), module_state(fresh)
+    if set(a) != set(b):
+        raise AssertionError(f"restored keys differ: {sorted(set(a) ^ set(b))[:5]}")
+    for k, v in a.items():
+        if not torch.equal(v, b[k]):
+            raise AssertionError(f"restored {k} differs")
+    n = len(a)
+    for name in ckpt_lib.OPTIMIZERS:
+        lo, fo = getattr(live.state, name), getattr(fresh.state, name)
+        if lo.count != fo.count:
+            raise AssertionError(f"{name} count {fo.count} vs {lo.count}")
+        lp = [p for g in lo.param_groups for p in g["params"]]
+        fp = [p for g in fo.param_groups for p in g["params"]]
+        for p, q in zip(lp, fp):
+            for k, v in lo.state[p].items():
+                if not torch.equal(v, fo.state[q][k]):
+                    raise AssertionError(f"{name} state {k} differs")
+                n += 1
+    for k in ("step", "epoch", "skipped_nan"):
+        if getattr(live.state, k) != getattr(fresh.state, k):
+            raise AssertionError(f"restored {k} differs")
+    return n
+
+
+LOOP_ROUNDS, LOOP_ITERS = 3, 6
+
+
+class LastRecord:
+    """A metrics writer that keeps the last record it was given."""
+
+    def write(self, step, scalars):
+        self.last = scalars
+
+
+def loop_cost(trainer, batch):
+    """What the loop adds to the step, timed in turns on `trainer`: fixed
+    batches (phase 9's measure) against `fit` over the training loaders
+    with no output_dir and no validation loader, so no save and no
+    validation pass (the loaders' threads, the upload, one log step) ->
+    {"fixed", "fit"}: median ms per iteration."""
+    from ag2video_torch.data.registry import Loader, get_dataset
+
+    cfg = trainer.cfg
+    train = Loader(get_dataset("synthetic", "train", cfg), cfg)
+    graph = Loader(get_dataset("synthetic", "train_graph", cfg), cfg)
+    gbatch = next(graph.epoch(0))
+
+    def fixed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LOOP_ITERS):
+            trainer.train_step(batch)
+            trainer.graph_step(gbatch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / LOOP_ITERS
+
+    def fit():
+        # One log step, at the end: the StepTimer mean of its intervals.
+        end, out = int(trainer.state.step) + LOOP_ITERS, LastRecord()
+        trainer.fit(train, graph, None, num_iterations=end, log_every=end,
+                    metrics_writer=out, timing=True)
+        torch.cuda.synchronize()
+        return out.last["step_ms_mean"]
+
+    times = {"fixed": [], "fit": []}
+    trainer.cfg = cfg.replace(output_dir="")
+    try:
+        for r in range(LOOP_ROUNDS):
+            for name in (("fixed", "fit") if r % 2 == 0 else ("fit", "fixed")):
+                times[name].append({"fixed": fixed, "fit": fit}[name]())
+    finally:
+        trainer.cfg = cfg
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_fit(phase9_ms):
+    from ag2video_torch.data.registry import Loader, get_dataset
+
+    iters, every = 6, 3
+    val_s = []
+    with tempfile.TemporaryDirectory() as out, \
+            timed_method(Trainer, "check_model", val_s):
+        del ckpt_lib.SAVE_TIMES[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL_LAUNCHES.reset()
+        PLAIN_CALLS.reset()
+        t0 = time.perf_counter()
+        trainer = train_main(FIT_ARGS + ["--output_dir", out])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+        peak = torch.cuda.max_memory_allocated()
+        cfg, vocab = trainer.cfg, trainer.vocab
+        if next(trainer.state.model.parameters()).device.type != "cuda":
+            raise AssertionError("the CLI's trainer is not on the card")
+        if launches != 2 * iters or plain != 0:
+            raise AssertionError(f"fit: {launches} rasterizer kernel launches "
+                                 f"and {plain} plain calls in {iters} "
+                                 f"train_steps")
+
+        # The metrics stream: losses at t=3 and 6, validation at t=0 and 3.
+        recs = read_metrics(out)
+        losses = ("G/total_loss", "D/total_img_loss", "Graph/total_loss")
+        for t in (every, iters):
+            check_finite(f"t={t}", recs.get(t, {}),
+                         losses + ("step_ms_mean", "step_ms_p50",
+                                   "skipped_nan"))
+            if recs[t]["skipped_nan"] != 0:
+                raise AssertionError(f"t={t}: skipped steps")
+        val_keys = ("no_use_gt/avg_iou", "use_gt/fidelity_fid",
+                    "use_gt/fidelity_presence_acc")
+        for t in (0, every):
+            check_finite(f"validation t={t}", recs.get(t, {}), val_keys)
+        if len(val_s) != 4:
+            raise AssertionError(f"{len(val_s)} validation passes, want 4")
+
+        # The run directory: itr_0 full, itr_3 light, itr_6 full.
+        for t, light in ((0, False), (every, True), (iters, False)):
+            path = ckpt_lib.checkpoint_path(out, t)
+            if not ckpt_lib.is_port_checkpoint(path) or \
+                    ckpt_lib.is_light_checkpoint(path) != light:
+                raise AssertionError(f"itr_{t}: want a "
+                                     f"{'light' if light else 'full'} "
+                                     f"checkpoint")
+        for name in ("run_args.json", "counters.json"):
+            if not os.path.isfile(os.path.join(out, name)):
+                raise AssertionError(f"no {name} in the run directory")
+        if not glob.glob(os.path.join(out, "events.out.tfevents.*")):
+            raise AssertionError("no TensorBoard event file")
+        if ckpt_lib.latest_checkpoint(out) != ckpt_lib.checkpoint_path(
+                out, iters):
+            raise AssertionError("the newest checkpoint is not itr_6")
+
+        # The run's session renders what the live trainer renders.
+        val_batch = next(Loader(get_dataset("synthetic", "val", cfg), cfg,
+                                shuffle=False).epoch(0))
+        session = GenerationSession(out).load()  # on the card
+        s_imgs, s_boxes = session.generate(val_batch)
+        l_imgs, l_boxes, _ = trainer.eval_batch(val_batch, use_gt=False)
+        e_sess = max(
+            check_close("session vs live imgs_pred", torch.from_numpy(s_imgs),
+                        l_imgs.float().cpu(), SESSION_TOL),
+            check_close("session vs live boxes_pred (clipped as the val "
+                        "pass clips them)",
+                        torch.from_numpy(s_boxes).clamp(0.0, 1.0),
+                        l_boxes.float().cpu(), SESSION_TOL))
+        del session
+
+        # itr_6 into a fresh trainer: equal exactly, then the same step.
+        fresh = Trainer(cfg, vocab, device=trainer.device)
+        fresh.init(val_batch)
+        fresh.restore_checkpoint(out)
+        n_equal = check_restored(trainer, fresh)
+        # The host's data rate alone: batches of the training loaders, each
+        # epoch's two threads rendering and collating.
+        loader_ms = {}
+        for part in ("train", "train_graph"):
+            it = Loader(get_dataset("synthetic", part, cfg), cfg).epoch(0)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                next(it)
+            loader_ms[part] = 1e3 * (time.perf_counter() - t0) / iters
+        # An async full save of the live state with its Adam moments (the
+        # in-loop full save at t=0 has none yet), written while the next
+        # steps run.
+        trainer.save_checkpoint(out, iters + 1, 0, block=False)
+        batch = next(Loader(get_dataset("synthetic", "train", cfg), cfg,
+                            shuffle=False).epoch(0))
+        ml = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        mf = {k: float(v) for k, v in fresh.train_step(batch).items()}
+        worst = 0.0
+        for k, v in ml.items():
+            err = abs(mf[k] - v)
+            if not np.isfinite(mf[k]) or \
+                    err > STEP1_TOL["atol"] + STEP1_TOL["rtol"] * abs(v):
+                raise AssertionError(f"restored step: {k} {mf[k]!r} vs {v!r}")
+            worst = max(worst, err / max(abs(v), 1e-12))
+        ckpt_lib.wait_for_saves()
+        del fresh
+        loop = loop_cost(trainer, batch)
+
+    B = cfg.batch_size
+    # StepTimer ticks after each iteration, so at t=6 its mean is the window
+    # from t=1 to t=6, the t=3 save and both validation passes included; its
+    # p50 is the steady step without them.
+    mean, p50 = recs[iters]["step_ms_mean"], recs[iters]["step_ms_p50"]
+    saves = {os.path.basename(r["path"]): r for r in ckpt_lib.SAVE_TIMES}
+    first, light, full_sync, full_async = (saves[f"itr_{t}"] for t in (
+        0, every, iters, iters + 1))
+
+    def save_line(r):
+        return (f"{r['bytes'] / 2**30:.3f} GiB, fetch {r['fetch_s']:.2f} s "
+                f"+ write {r['write_s']:.2f} s")
+
+    H, W = cfg.image_size
+    print(f"phase 10 training run (scripts.train main, synthetic {H}x{W}, "
+          f"Config defaults B={B} T={cfg.frames_per_action} graph "
+          f"T={4 * cfg.frames_per_action_graph} {cfg.compute_dtype}, "
+          f"{iters} iterations; the discriminator rasterizes N="
+          f"{B * (cfg.frames_per_action - 1)} O={cfg.max_objects} "
+          f"D={2 * cfg.gconv_dim}): fit {mean:.1f} ms per iteration over "
+          f"t=1..{iters} (StepTimer mean: data, logging, the t={every} save "
+          f"and both validation passes included; p50 {p50:.1f} ms) against "
+          f"phase 9's {phase9_ms:.1f} ms; {B / mean * 1e3:.3f} training "
+          f"samples/s; in turns on this trainer ({LOOP_ROUNDS} rounds of "
+          f"{LOOP_ITERS}, medians): fixed batches {loop['fixed']:.1f} ms, fit "
+          f"over the loaders with no save and no validation "
+          f"{loop['fit']:.1f} ms ({loop['fit'] / loop['fixed']:.3f}x); "
+          f"whole CLI run {run_s:.1f} s; peak memory {peak / 2**30:.2f} GiB; "
+          f"rasterizer kernel launches {launches // iters} per train_step, "
+          f"plain calls {plain}; skipped steps 0; validation passes "
+          f"(use_gt, no_use_gt at t=0, 3) "
+          + ", ".join(f"{s:.2f}" for s in val_s) + " s; t=3 avg_iou "
+          f"{recs[every]['no_use_gt/avg_iou']:.4f}, fidelity_fid "
+          f"{recs[every]['use_gt/fidelity_fid']:.3f}, presence_acc "
+          f"{recs[every]['use_gt/fidelity_presence_acc']:.4f}; saves: "
+          f"full sync (itr_{iters}) {save_line(full_sync)}, full async "
+          f"(itr_{iters + 1}, after the loop) {save_line(full_async)}, "
+          f"light async (itr_{every}) {save_line(light)}, full async at "
+          f"t=0 (no Adam moments yet) {save_line(first)}; the loaders "
+          f"alone {loader_ms['train']:.1f} ms per train batch, "
+          f"{loader_ms['train_graph']:.1f} ms per graph batch; "
+          f"itr_{iters} restored exactly "
+          f"({n_equal} tensors), next step losses within {worst:.2e} rel; "
+          f"session vs live frames {e_sess:.3e}")
+    return launches // iters
 
 
 def main():
@@ -623,7 +928,8 @@ def main():
     phase_factorized()
     phase_full(factorized=True)
     phase_small_trainer()
-    per_train_step = phase_train_full()
+    per_train_step, phase9_ms = phase_train_full()
+    per_train_step_fit = phase_fit(phase9_ms)
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -634,6 +940,7 @@ def main():
     }, **timing["c"],
         library="torch.bmm(coverage (N, H*W, O) bf16, vecs (N, O, D) bf16)",
         launches_per_train_step=per_train_step,
+        launches_per_train_step_fit=per_train_step_fit,
         disc_shape="N=9 O=12 D=256 256x256 bf16",
         **{f"disc_{k}": v for k, v in disc.items()})]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,13 @@
 """The port's copies of pure-numpy modules of the JAX package, held equal to
 their originals on numpy inputs: inference/actions.py (every builder),
 data/collate.py, data/transforms.py's normalisation and utils/vis.py's
-artifacts."""
+artifacts; and, by their code, the training run's host-side copies:
+data/synthetic.py, the registry's `Loader`, utils/tfevents.py,
+utils/logging.py, the `StepTimer`, eval/fid.py, the fidelity labels and
+`vis.save_images`
+(tests/test_torch_{data,eval}.py run them against the originals)."""
 
+import ast
 import os
 import pickle
 
@@ -138,3 +143,66 @@ def test_saved_artifacts_match(rng, tmp_path):
         got = pickle.load(f)
     np.testing.assert_array_equal(got["image"], video)
     np.testing.assert_array_equal(got["box"], boxes)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _strip_docstrings(node):
+    for n in ast.walk(node):
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                          ast.ClassDef, ast.Module)) and n.body and \
+                isinstance(n.body[0], ast.Expr) and \
+                isinstance(n.body[0].value, ast.Constant) and \
+                isinstance(n.body[0].value.value, str):
+            n.body = n.body[1:] or [ast.Pass()]
+    return node
+
+
+def _code(rel_path, package, names=None, fixes=()):
+    """The module's code without docstrings and top-level imports (or only
+    the top-level definitions in `names`), as AST dumps; the JAX package's
+    name reads as the port's, and each (old, new) of `fixes` is applied to
+    the source first."""
+    with open(os.path.join(REPO, package, rel_path)) as f:
+        src = f.read().replace("ag2video_tpu", "ag2video_torch")
+    for old, new in fixes:
+        assert old in src, old
+        src = src.replace(old, new)
+    tree = _strip_docstrings(ast.parse(src))
+    out = []
+    for n in tree.body:
+        if isinstance(n, (ast.Import, ast.ImportFrom)):
+            continue
+        if names is not None and getattr(n, "name", None) not in names:
+            continue
+        out.append(ast.dump(n))
+    return out
+
+
+# (module, top-level names or None for the whole module, source fixes
+# applied to the JAX original: the one call the port changed on purpose).
+CODE_COPIES = {
+    "synthetic": ("data/synthetic.py", None, ()),
+    "loader": ("data/registry.py", ["Loader"], ()),
+    "tfevents": ("utils/tfevents.py", None, ()),
+    "logging": ("utils/logging.py", None, ()),
+    "step_timer": ("utils/profiling.py", ["StepTimer"], ()),
+    "fid": ("eval/fid.py", ["compute_statistics", "frechet_distance",
+                            "fid_from_features",
+                            "inception_score_from_probs"], (
+        ("covmean, _ = linalg.sqrtm(sigma1.dot(sigma2), disp=False)",
+         "covmean = linalg.sqrtm(sigma1.dot(sigma2))"),)),
+    "labels": ("eval/backbone.py", ["presence_labels", "grid_labels",
+                                    "load_backbone"], ()),
+    "save_images": ("utils/vis.py", ["save_images"], ()),
+}
+
+
+@pytest.mark.parametrize("name", list(CODE_COPIES))
+def test_host_copies_are_the_originals(name):
+    path, names, fixes = CODE_COPIES[name]
+    want = _code(path, "ag2video_tpu", names, fixes)
+    got = _code(path, "ag2video_torch", names)
+    assert len(want) == len(names or want) > 0
+    assert got == want

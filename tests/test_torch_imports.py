@@ -1,5 +1,6 @@
-"""The port runs where JAX is absent: every ag2video_torch module and
-chip_smoke.py import with jax, flax and the JAX package itself
+"""The port runs where JAX is absent: every ag2video_torch module (the
+training run's among them) and chip_smoke.py import with jax, flax and the
+JAX package itself
 (ag2video_tpu) blocked, and with imageio blocked too (the card machine
 lacks it; only `utils.vis.save_gif` imports it, when called), and a CPU
 call of the
@@ -55,11 +56,15 @@ def test_port_imports_without_jax():
     proc = _run(["-c", BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    # every module of the package, not just the root: the training slice's
-    # losses, discriminator, vgg and train modules among them
-    assert n >= 36
+    # every module of the package, not just the root: the training step's
+    # losses, discriminator, vgg and train modules, and the training run's
+    # data, evaluation, checkpoint, telemetry and CLI modules among them
+    assert n >= 49
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
-                 "train.trainer"):
+                 "train.trainer", "train.checkpoint", "data.synthetic",
+                 "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
+                 "ops.metrics", "utils.logging", "utils.tfevents",
+                 "utils.profiling", "scripts.train"):
         assert f"ag2video_torch.{name}" in proc.stdout
 
 

@@ -45,7 +45,8 @@ from ag2video_torch.config import Config
 from ag2video_torch.inference import make_inputs
 from ag2video_torch.losses.gan import gan_loss, multiscale_gan_loss
 from ag2video_torch.train import Trainer
-from ag2video_torch.weights import flax_to_state_dict, trainer_from_flax
+from ag2video_torch.weights import (_unmasked, adam_state,
+                                    flax_to_state_dict, trainer_from_flax)
 from tests.test_train import tiny_config
 
 torch.set_num_threads(2)
@@ -166,6 +167,8 @@ def run_parity(factorized: bool) -> dict:
                 {k: v.clone() for k, v in tt.state.disc.state_dict().items()})
     out["steps"] = steps
     out["skipped"] = (int(jt.state.skipped_nan), tt.skipped_nan)
+    out.update(jax_trainer=jt, jax_states=(st, jax.device_get(jt.state)),
+               batch=batch, graph=graph)
     return out
 
 
@@ -324,3 +327,138 @@ def test_freeze_graph_updates_nothing(parity):
     for k, v in tt.state.model.state_dict().items():
         assert torch.equal(v, before[k]), k
 
+
+
+class BatchList:
+    """A validation loader over fixed batches (check_model reads
+    `epoch(0)`)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, epoch=0):
+        return iter(self.batches)
+
+
+def _moments(opt_state):
+    """{port parameter name: (mu, nu)} of an optax Adam state, and its
+    count."""
+    adam = adam_state(opt_state)
+    mu = flax_to_state_dict({"params": _unmasked(adam.mu)})
+    nu = flax_to_state_dict({"params": _unmasked(adam.nu)})
+    return {k: (mu[k], nu[k]) for k in mu}, int(adam.count)
+
+
+def _port_moments(opt, module):
+    names = {id(p): n for n, p in module.named_parameters()}
+    return {names[id(p)]: (st["exp_avg"].clone(), st["exp_avg_sq"].clone())
+            for p, st in opt.state.items()}, opt.count
+
+
+OPTS = (("opt_graph", "opt_graph_state", "model"),
+        ("opt_gen", "opt_gen_state", "model"),
+        ("opt_d", "opt_d_state", "disc"))
+
+
+@pytest.fixture(scope="module")
+def carried(parity):
+    """A fresh port trainer holding the JAX state after one step (weights,
+    norm state, counters and the three optax Adam states); at that state
+    both sides' spectral telemetry and validation IoU; then the port's
+    second iteration."""
+    jt = parity["jax_trainer"]
+    state1, state2 = parity["jax_states"]
+    cfg, vocab = parity["cfg"], parity["vocab"]
+    tt = Trainer(cfg, vocab, device="cpu")
+    tt.init(parity["batch"])
+    trainer_from_flax(state1, tt)
+    out = {"state1": state1, "state2": state2}
+    out["moments1"] = {name: _port_moments(getattr(tt.state, name),
+                                           getattr(tt.state, mod))
+                       for name, _, mod in OPTS}
+    out["counters"] = (tt.state.step, tt.state.skipped_nan)
+
+    val = BatchList([_jbatch(make_inputs(cfg, vocab, cfg.batch_size,
+                                         cfg.frames_per_action, seed=s))
+                     for s in (5, 6)])
+    live = jt.state
+    jt.state = jax.device_put(state1)
+    try:
+        out["sigma"] = (jt.spectral_stats(), tt.spectral_stats())
+        out["iou"] = (jt.check_model(val, use_gt=False)[0],
+                      tt.check_model(val, use_gt=False)[0])
+    finally:
+        jt.state = live
+
+    m = _floats(tt.train_step(parity["batch"]))
+    m.update(_floats(tt.graph_step(parity["graph"])))
+    out["step2"] = m
+    out["moments2"] = {name: _port_moments(getattr(tt.state, name),
+                                           getattr(tt.state, mod))
+                       for name, _, mod in OPTS}
+    return out
+
+
+def test_trainer_from_flax_carries_the_optax_states(carried):
+    """Each Adam gets exactly its own parameters' moments (optax.masked
+    leaves the others' as MaskedNode), its count and the counters."""
+    st = carried["state1"]
+    assert carried["counters"] == (int(st.step), int(st.skipped_nan)) == \
+        (1, 0)
+    seen = set()
+    for name, field, _ in OPTS:
+        want, count = _moments(getattr(st, field))
+        got, t_count = carried["moments1"][name]
+        assert t_count == count == 1, name
+        assert got.keys() == want.keys() and len(got) > 0, name
+        for k, (mu, nu) in want.items():
+            assert torch.equal(got[k][0], mu) and torch.equal(got[k][1], nu), \
+                (name, k)
+        assert not seen & set(got) or name == "opt_d"
+        seen |= set(got) if name != "opt_d" else set()
+    assert any(k.startswith("acts_to_boxes.") for k in
+               carried["moments1"]["opt_graph"][0])
+    assert not any(k.startswith("acts_to_boxes.") for k in
+                   carried["moments1"]["opt_gen"][0])
+
+
+def test_spectral_stats_match(carried):
+    want, got = carried["sigma"]
+    assert set(got) == set(want) and {"sigma/D_max", "sigma/G_mean"} <= \
+        set(got)
+    for k in want:
+        assert np.isclose(got[k], want[k], rtol=1e-6, atol=0), k
+
+
+def test_check_model_iou_matches(carried):
+    """The use_gt=False pass's IoU triple over the same two batches."""
+    want, got = carried["iou"]
+    assert set(got) == set(want) == {"avg_iou", "total_iou_05",
+                                     "total_iou_03"}
+    assert np.isclose(got["avg_iou"], want["avg_iou"], rtol=1e-5)
+    assert 0.0 < want["avg_iou"] < 1.0
+    for k in ("total_iou_05", "total_iou_03"):
+        assert got[k] == want[k], k
+
+
+def test_carried_state_takes_the_jax_second_step(carried, parity):
+    """From the carried state, the second iteration's losses match the JAX
+    second step's at the first step's tolerance, and the Adam moments
+    after it match JAX's: they build on the carried ones (with fresh
+    moments the first moment would be (1 - beta1) * g, off by the whole
+    carried part)."""
+    jm = parity["steps"][1][0]
+    tm = carried["step2"]
+    assert set(tm) == set(jm)
+    for k in jm:
+        _close(tm[k], jm[k], LOSS_RTOL, k)
+    st2 = carried["state2"]
+    for name, field, _ in OPTS:
+        want, count = _moments(getattr(st2, field))
+        got, t_count = carried["moments2"][name]
+        assert t_count == count == 2, name
+        for i in (0, 1):
+            err = sum(float(((got[k][i] - w[i]) ** 2).sum())
+                      for k, w in want.items()) ** 0.5
+            norm = sum(float((w[i] ** 2).sum()) for w in want.values()) ** 0.5
+            assert err <= G_GRAD_REL_L2 * norm, (name, i, err / norm)
