@@ -8,9 +8,9 @@ longer clips for the graph-only loss), `val`, `test`. A threaded prefetch
 loader yields fixed-shape numpy `Batch`es, sharded per host by index
 stride; the trainer uploads them to the device (`Trainer._batch`).
 
-Only `synthetic` is built here: the CATER and Something-Else loaders need
-their datasets' files, which are not in the repository (ROADMAP.md
-"Modules not yet ported").
+`cater` and `smth_else` read their datasets' files from the roots their
+environment variables name (data/cater.py, data/smth.py); the repository
+ships their split files only.
 """
 
 from __future__ import annotations
@@ -61,10 +61,12 @@ def get_dataset(name: str, partition: str, cfg: Config):
             render=not (partition == "train_graph"
                         or (cfg.graph_only and partition == "train")),
         )
-    if name in ("cater", "smth_else"):
-        raise NotImplementedError(
-            f"the {name!r} dataset loader is not ported yet: ROADMAP.md "
-            "'Modules not yet ported' (its files are not in the repository)")
+    if name == "cater":
+        from ag2video_torch.data.cater import CATERDataset
+        return CATERDataset.from_config(partition, cfg)
+    if name == "smth_else":
+        from ag2video_torch.data.smth import SmthElseDataset
+        return SmthElseDataset.from_config(partition, cfg)
     raise ValueError(f"Unknown dataset {name!r}")
 
 

@@ -1,9 +1,12 @@
-"""Build and bind the hand-written CUDA kernels under ``ag2video_torch/csrc``.
+"""Build and bind the hand-written native code under ``ag2video_torch/csrc``.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface and loaded with ``ctypes``, at first use and never at
-import. The library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused. Build outputs go to
+Each CUDA source (``<name>.cu``) is compiled by ``nvcc`` for ``sm_90a``, and
+the host library (``host.cpp``) by ``g++`` with the JAX package's
+``native/Makefile`` flags, into a shared library with a plain C interface,
+loaded with ``ctypes``, at first use and never at import. The library's file
+name carries a hash of its source and its compile command (for the host
+library also of the CPU that ``-march=native`` resolves to), so an edited
+source is rebuilt and an unchanged one is reused. Build outputs go to
 ``ag2video_torch/_build/`` (git-ignored).
 """
 
@@ -45,6 +48,8 @@ class KernelLibrary:
 
 _loaded: Dict[str, KernelLibrary] = {}
 _lock = threading.Lock()
+# One lock per library: two libraries build at once, one library once.
+_build_locks: Dict[str, threading.Lock] = {}
 
 
 def _nvcc() -> str:
@@ -58,14 +63,22 @@ def _nvcc() -> str:
                        "toolkit on PATH or under /usr/local/cuda")
 
 
-def load(name: str) -> KernelLibrary:
-    """Compile ``csrc/<name>.cu`` if needed and load it."""
+# native/Makefile's CXXFLAGS and LDFLAGS.
+HOST_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
+HOST_LDFLAGS = ("-shared", "-lpthread")
+
+
+def _build(name: str, src: Path, command, salt: str = "") -> KernelLibrary:
+    """Compile `src` with `command(out_path)` (an argv) unless a library of
+    the same source, command and `salt` is built, and load it."""
     with _lock:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC / f"{name}.cu"
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            src.read_bytes() + " ".join(command("")).encode()
+            + salt.encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{name}_{digest}.so"
         log = ""
@@ -76,12 +89,11 @@ def load(name: str) -> KernelLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                    capture_output=True, text=True)
+                argv = command(tmp)
+                proc = subprocess.run(argv, capture_output=True, text=True)
                 log = proc.stdout + proc.stderr
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+                    raise RuntimeError(f"{argv[0]} failed for {src}:\n{log}")
                 os.replace(tmp, so)
             finally:
                 if os.path.exists(tmp):
@@ -90,6 +102,36 @@ def load(name: str) -> KernelLibrary:
                               time.perf_counter() - t0, log)
         _loaded[name] = built
         return built
+
+
+def load(name: str) -> KernelLibrary:
+    """Compile ``csrc/<name>.cu`` if needed and load it."""
+    src = CSRC / f"{name}.cu"
+    return _build(name, src,
+                  lambda out: [_nvcc(), *NVCC_FLAGS, "-o", out, str(src)])
+
+
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the host library "
+                           "(csrc/host.cpp) needs a C++17 compiler")
+    return found
+
+
+def host_library() -> KernelLibrary:
+    """``csrc/host.cpp``, compiled by g++ if needed, and loaded. The
+    library is keyed on the target that ``-march=native`` resolves to, so a
+    build directory shared between machines never hands one CPU another's
+    instructions."""
+    if "host" in _loaded:
+        return _loaded["host"]
+    cxx = _cxx()
+    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True).stdout
+    src = CSRC / "host.cpp"
+    return _build("host", src, lambda out: [
+        cxx, *HOST_CXXFLAGS, str(src), "-o", out, *HOST_LDFLAGS], target)
 
 
 def rasterize_library() -> KernelLibrary:

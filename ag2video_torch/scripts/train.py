@@ -11,9 +11,12 @@ and `itr_<t>/` checkpoints, which `inference.GenerationSession(output_dir)`
 renders. `--restore_checkpoint 1` resumes from `--checkpoint_name` if it
 is a path, else from the newest `itr_*` under `--output_dir`.
 
-Not ported (ROADMAP.md): the CATER cache pre-warmer flags (no CATER loader
-yet), `--debug_nans` (a JAX flag), multi-host initialisation and the
-device mesh (data parallel comes later).
+`--cache_data 1` pre-warms the dataset's frame cache (CATER: the PNG cache
+decoded from the videos) over shard `--cache_worker_id` of
+`--cache_workers` and returns without training.
+
+Not ported (ROADMAP.md): `--debug_nans` (a JAX flag), multi-host
+initialisation and the device mesh (data parallel comes later).
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ def bool_flag(s):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """Flags from the Config dataclass, plus --device."""
+    """Flags from the Config dataclass, plus the cache pre-warmer's and
+    --device."""
     from ag2video_torch.config import Config
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -56,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(name, type=float, default=f.default)
         else:
             p.add_argument(name, type=str, default=f.default)
+    # Cache pre-warmer flags (reference --cache_data/--num_workers/
+    # --worker_id, data/args.py:66-68).
+    p.add_argument("--cache_data", type=int, default=0)
+    p.add_argument("--cache_workers", type=int, default=1)
+    p.add_argument("--cache_worker_id", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the CUDA card (cpu: the CPU)")
     return p
@@ -63,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Parse `argv`, build the data, the trainer and the run directory, and
-    train -> the Trainer."""
+    train -> the Trainer (None after --cache_data)."""
     from ag2video_torch.config import Config
     from ag2video_torch.data.registry import Loader, get_dataset
     from ag2video_torch.train.checkpoint import latest_checkpoint
@@ -75,6 +84,12 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = Config.from_dict(vars(args))
 
     train_ds = get_dataset(cfg.dataset, "train", cfg)
+    # Dataset cache pre-warmer: decode a 1/cache_workers shard, then return
+    # (reference --cache_data mode, scripts/train.py:328-343).
+    if args.cache_data:
+        if hasattr(train_ds, "cache_all"):
+            train_ds.cache_all(args.cache_workers, args.cache_worker_id)
+        return None
     graph_ds = get_dataset(cfg.dataset, "train_graph", cfg)
     val_ds = get_dataset(cfg.dataset, "val", cfg)
     vocab = train_ds.vocab

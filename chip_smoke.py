@@ -5,7 +5,10 @@
 
 Phases, each printing one line (any failure raises and exits nonzero):
 
-1. the card's name and power limit (nvidia-smi) and the kernel build;
+1. the card's name and power limit (nvidia-smi), the builds of the kernel
+   and of the host library (csrc/host.cpp, g++; not a device kernel), both
+   started together, and which of PIL, pandas, cv2 and imageio import here
+   (information only: no phase needs them);
 2. the box-rasterizer kernel against its plain PyTorch version at the
    shapes of KERNEL_SHAPES (fully masked frames must come out exactly
    zero), then kernel, plain, library (torch.bmm) and fill_ times at the
@@ -54,7 +57,24 @@ Phases, each printing one line (any failure raises and exits nonzero):
    validation against fixed batches in turns, peak memory, the seconds of
    each validation pass, each save's size, fetch and write (and an async
    full save with the Adam moments after the loop), and the loaders' own
-   ms per batch.
+   ms per batch;
+11. a CATER training run at full width: a CATER max2action tree fabricated
+   with no PIL and no cv2 (torch_tools/cater_tree.py: 6 videos of 301
+   frames at 320x240, PNG caches written by data/png.py), then
+   `scripts.train.main` with --dataset cater at 256x256 and the Config
+   defaults, cut to 4 iterations with saves at 0/2/4 and validation on 3
+   clips: finite losses, no skipped step, a finite validation IoU, the
+   checkpoints, 2 rasterizer kernel launches per `train_step` and no plain
+   call; `--cache_data 1` on the same tree returns and touches no file;
+   `fit`'s ms per iteration (window and p50) and the loaders' ms per batch
+   beside phase 10's, `read_png`'s ms per frame, `clip_transform`'s ms per
+   clip, peak memory and the phase's seconds;
+12. the CLIs on phase 10's run directory: `scripts.generate` (every
+   test/<id>.pkl finite, the first equal to the session's frames, GIFs
+   skipped where imageio is missing, counted), `scripts.eval_fidelity`
+   (every checkpoint's finite FID, into a directory that did not exist,
+   real-vs-real under noise-vs-real) and `scripts.summarize_metrics` (the
+   G, D and Graph losses).
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -63,30 +83,40 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ag2video_torch import Config, get_vocab
 from ag2video_torch.flax_npz import COLLECTIONS
+from ag2video_torch.data.png import read_png
+from ag2video_torch.data.transforms import clip_transform
 from ag2video_torch.inference import GenerationSession, generate, make_inputs
+from ag2video_torch.inference.generate import GIFS_SKIPPED
 from ag2video_torch.models import AG2VideoModel
 from ag2video_torch.models.generator import Layout2VidGenerator
-from ag2video_torch.ops._kernels import rasterize_library
+from ag2video_torch.ops._kernels import host_library, rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
+from ag2video_torch.scripts.eval_fidelity import main as eval_fidelity_main
+from ag2video_torch.scripts.generate import main as generate_main
+from ag2video_torch.scripts.summarize_metrics import main as summarize_main
 from ag2video_torch.scripts.train import main as train_main
 from ag2video_torch.train import Trainer
 from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.weights import init_params
+from torch_tools.cater_tree import make_tree
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
              max_triplets=6, max_actions=2, embedding_dim=16, gconv_dim=16,
@@ -136,6 +166,14 @@ FIT_ARGS = ["--dataset", "synthetic", "--image_size", "256,256",
             "--num_iterations", "6", "--checkpoint_every", "3",
             "--full_checkpoint_every_n", "2", "--num_val_samples", "6",
             "--print_every", "3", "--timing", "1"]
+# Phase 11: the training CLI with the Config defaults on a fabricated CATER
+# tree at 256x256, cut in length only.
+CATER_ARGS = ["--dataset", "cater", "--image_size", "256,256",
+              "--num_iterations", "4", "--checkpoint_every", "2",
+              "--num_val_samples", "3", "--print_every", "2", "--timing", "1"]
+CATER_VIDEOS, CATER_OBJECTS = 6, 5
+CATER_ENV = ("CATER_DATA_ROOT", "CATER_SPLITS_DIR", "CATER_NFRAMES")
+OPTIONAL_PACKAGES = ("PIL", "pandas", "cv2", "imageio")
 # The run's session against the live trainer: the same weights through the
 # same forward on one card.
 SESSION_TOL = F32_TOL
@@ -163,6 +201,18 @@ def raster_inputs(N, O, D, H, dtype, seed):
     return vecs.cuda(), boxes.cuda(), mask.cuda()
 
 
+def optional_packages():
+    """{package: whether it imports}, tried in a child process so that this
+    one never holds them."""
+    code = ("import importlib, json\nok = {}\nfor m in %r:\n    try:\n"
+            "        importlib.import_module(m)\n        ok[m] = True\n"
+            "    except Exception:\n        ok[m] = False\n"
+            "print(json.dumps(ok))" % (OPTIONAL_PACKAGES,))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, check=True, timeout=120)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,12 +220,19 @@ def phase_card():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    built = rasterize_library()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(rasterize_library), pool.submit(host_library)]
+        built, host = (b.result() for b in builds)
     ptxas = [ln.strip() for ln in built.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    found = optional_packages()
     print(f"phase 1 build: csrc/rasterize.cu -> {built.path.name} in "
-          f"{built.build_seconds:.2f} s; ptxas: {' | '.join(ptxas)}")
-    return card
+          f"{built.build_seconds:.2f} s; ptxas: {' | '.join(ptxas)}; "
+          f"csrc/host.cpp (host code, g++) -> {host.path.name} in "
+          f"{host.build_seconds:.2f} s; optional packages: "
+          + ", ".join(f"{m} {'imports' if ok else 'missing'}"
+                      for m, ok in found.items()))
+    return found
 
 
 # (name, N, O, D, H, W, dtype): the JAX kernel test's shape and odd shapes
@@ -760,13 +817,15 @@ def loop_cost(trainer, batch):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def phase_fit(phase9_ms):
+def phase_fit(phase9_ms, out):
+    """Phase 10, writing its run directory to `out` (phase 12 reads it) ->
+    {"launches": per train_step, "mean", "p50": fit's ms per iteration,
+    "loader_ms": {partition: ms per batch}}."""
     from ag2video_torch.data.registry import Loader, get_dataset
 
     iters, every = 6, 3
     val_s = []
-    with tempfile.TemporaryDirectory() as out, \
-            timed_method(Trainer, "check_model", val_s):
+    with timed_method(Trainer, "check_model", val_s):
         del ckpt_lib.SAVE_TIMES[:]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -841,13 +900,7 @@ def phase_fit(phase9_ms):
         n_equal = check_restored(trainer, fresh)
         # The host's data rate alone: batches of the training loaders, each
         # epoch's two threads rendering and collating.
-        loader_ms = {}
-        for part in ("train", "train_graph"):
-            it = Loader(get_dataset("synthetic", part, cfg), cfg).epoch(0)
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                next(it)
-            loader_ms[part] = 1e3 * (time.perf_counter() - t0) / iters
+        synthetic_loader_ms = loader_ms("synthetic", cfg, iters)
         # An async full save of the live state with its Adam moments (the
         # in-loop full save at t=0 has none yet), written while the next
         # steps run.
@@ -906,12 +959,224 @@ def phase_fit(phase9_ms):
           f"(itr_{iters + 1}, after the loop) {save_line(full_async)}, "
           f"light async (itr_{every}) {save_line(light)}, full async at "
           f"t=0 (no Adam moments yet) {save_line(first)}; the loaders "
-          f"alone {loader_ms['train']:.1f} ms per train batch, "
-          f"{loader_ms['train_graph']:.1f} ms per graph batch; "
+          f"alone {synthetic_loader_ms['train']:.1f} ms per train batch, "
+          f"{synthetic_loader_ms['train_graph']:.1f} ms per graph batch; "
           f"itr_{iters} restored exactly "
           f"({n_equal} tensors), next step losses within {worst:.2e} rel; "
           f"session vs live frames {e_sess:.3e}")
+    return {"launches": launches // iters, "mean": mean, "p50": p50,
+            "loader_ms": synthetic_loader_ms}
+
+
+def tree_state(root):
+    """{path: mtime} of every file under root."""
+    return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+            for d, _, files in os.walk(root) for f in files}
+
+
+def loader_ms(dataset, cfg, batches):
+    """ms per batch of the training loaders alone, over `batches` batches
+    (across epochs, as `fit` takes them) -> {partition: ms}."""
+    from ag2video_torch.data.registry import Loader, get_dataset
+
+    out = {}
+    for part in ("train", "train_graph"):
+        it = Loader(get_dataset(dataset, part, cfg), cfg).forever()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        out[part] = 1e3 * (time.perf_counter() - t0) / batches
+    return out
+
+
+def phase_cater(tmp, fit):
+    """Phase 11 on a CATER tree fabricated under `tmp`, beside phase 10's
+    figures `fit` -> rasterizer launches per train_step."""
+    t_phase = time.perf_counter()
+    iters, every = 4, 2
+    t0 = time.perf_counter()
+    root, splits, names = make_tree(os.path.join(tmp, "cater"),
+                                    CATER_VIDEOS, nframes=301,
+                                    n_objects=CATER_OBJECTS)
+    fabricate_s = time.perf_counter() - t0
+    saved = {k: os.environ.get(k) for k in CATER_ENV}
+    os.environ["CATER_DATA_ROOT"], os.environ["CATER_SPLITS_DIR"] = root, \
+        splits
+    os.environ.pop("CATER_NFRAMES", None)   # the default, 301
+    out = os.path.join(tmp, "cater_run")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL_LAUNCHES.reset()
+        PLAIN_CALLS.reset()
+        t0 = time.perf_counter()
+        trainer = train_main(CATER_ARGS + ["--output_dir", out])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+        peak = torch.cuda.max_memory_allocated()
+        cfg = trainer.cfg
+        if next(trainer.state.model.parameters()).device.type != "cuda":
+            raise AssertionError("the CLI's trainer is not on the card")
+        if launches != 2 * iters or plain != 0:
+            raise AssertionError(f"CATER fit: {launches} rasterizer kernel "
+                                 f"launches and {plain} plain calls in "
+                                 f"{iters} train_steps")
+        if trainer.skipped_nan != 0:
+            raise AssertionError(f"{trainer.skipped_nan} skipped steps")
+        recs = read_metrics(out)
+        losses = ("G/total_loss", "D/total_img_loss", "Graph/total_loss")
+        for t in (every, iters):
+            check_finite(f"CATER t={t}", recs.get(t, {}),
+                         losses + ("step_ms_mean", "step_ms_p50",
+                                   "skipped_nan"))
+            if recs[t]["skipped_nan"] != 0:
+                raise AssertionError(f"CATER t={t}: skipped steps")
+        for t in (0, every):
+            check_finite(f"CATER validation t={t}", recs.get(t, {}),
+                         ("no_use_gt/avg_iou",))
+        for t in (0, every, iters):
+            if not ckpt_lib.is_port_checkpoint(
+                    ckpt_lib.checkpoint_path(out, t)):
+                raise AssertionError(f"CATER run: no itr_{t}")
+        del trainer
+
+        # The cache is complete: the pre-warmer decodes nothing.
+        before = tree_state(root)
+        if train_main(CATER_ARGS + ["--output_dir", out,
+                                    "--cache_data", "1"]) is not None:
+            raise AssertionError("--cache_data 1 trained")
+        if tree_state(root) != before:
+            raise AssertionError("--cache_data 1 changed the frame cache")
+
+        cater_loader_ms = loader_ms("cater", cfg, 6)
+        frames = sorted(glob.glob(os.path.join(root, "videos", names[0],
+                                               "*.png")))[:60]
+        t0 = time.perf_counter()
+        decoded = [read_png(p) for p in frames]
+        png_ms = 1e3 * (time.perf_counter() - t0) / len(frames)
+        clips = [decoded[i:i + cfg.frames_per_action]
+                 for i in range(0, 40, cfg.frames_per_action)]
+        t0 = time.perf_counter()
+        for clip in clips:
+            clip_transform(clip, cfg.image_size)
+        clip_ms = 1e3 * (time.perf_counter() - t0) / len(clips)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    B, H, W = cfg.batch_size, *cfg.image_size
+    mean, p50 = recs[iters]["step_ms_mean"], recs[iters]["step_ms_p50"]
+    print(f"phase 11 CATER training run (scripts.train main, --dataset "
+          f"cater {H}x{W}, Config defaults B={B} T={cfg.frames_per_action} "
+          f"graph T={4 * cfg.frames_per_action_graph} {cfg.compute_dtype}, "
+          f"{iters} iterations, saves at 0/{every}/{iters}, validation on "
+          f"{cfg.num_val_samples} clips; {CATER_VIDEOS} fabricated videos "
+          f"of 301 {decoded[0].shape[1]}x{decoded[0].shape[0]} PNG frames, "
+          f"{CATER_OBJECTS} objects, written in {fabricate_s:.1f} s): fit "
+          f"{mean:.1f} ms per iteration over t=1..{iters} (StepTimer mean, "
+          f"the t={every} save and validation included; p50 {p50:.1f} ms) "
+          f"against phase 10's synthetic {fit['mean']:.1f} ms (p50 "
+          f"{fit['p50']:.1f} ms); {B / mean * 1e3:.3f} training samples/s; "
+          f"rasterizer kernel launches {launches // iters} per train_step, "
+          f"plain calls {plain}; skipped steps 0; t={every} losses "
+          + ", ".join(f"{k} {recs[every][k]:.4f}" for k in losses)
+          + f", avg_iou {recs[every]['no_use_gt/avg_iou']:.4f}; the CATER "
+          f"loaders alone {cater_loader_ms['train']:.1f} ms per train batch, "
+          f"{cater_loader_ms['train_graph']:.1f} ms per graph batch, "
+          f"against the synthetic loaders' {fit['loader_ms']['train']:.1f} / "
+          f"{fit['loader_ms']['train_graph']:.1f} ms; read_png "
+          f"{png_ms:.3f} ms per frame; clip_transform {clip_ms:.3f} ms per "
+          f"{cfg.frames_per_action}-frame clip to {H}x{W}; --cache_data 1 "
+          f"returned and left the cache as it was; whole CLI run "
+          f"{run_s:.1f} s; peak memory {peak / 2**30:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return launches // iters
+
+
+def phase_clis(run_dir, tmp, imageio_ok):
+    """Phase 12: the generate, eval_fidelity and summarize_metrics CLIs on
+    phase 10's run directory; `imageio_ok`: whether imageio imports, so
+    that no GIF may be skipped."""
+    from ag2video_torch.data.registry import Loader, get_dataset
+
+    t_phase = time.perf_counter()
+    GIFS_SKIPPED.reset()
+    results = generate_main(["--checkpoint", run_dir, "--num_videos", "2",
+                             "--output_dir", os.path.join(tmp, "generated")])
+    pkls = sorted(glob.glob(os.path.join(results, "test", "*.pkl")))
+    cfg, _ = Config.load_run_args(run_dir)
+    cfg = cfg.replace(batch_size=1)
+    first = next(Loader(get_dataset(cfg.dataset, "test", cfg), cfg,
+                        batch_size=1, shuffle=False,
+                        drop_last=False).epoch(0))
+    want_shape = (cfg.frames_per_action, *cfg.image_size, 3)
+    if len(pkls) != 2:
+        raise AssertionError(f"generate wrote {len(pkls)} pkls, want 2")
+    for path in pkls:
+        with open(path, "rb") as f:
+            image = pickle.load(f)["image"]
+        if image.shape != want_shape or not np.isfinite(image).all():
+            raise AssertionError(f"{path}: image {image.shape}, finite "
+                                 f"{np.isfinite(image).all()}")
+    with open(os.path.join(results, "test", f"{first.video_ids[0]}.pkl"),
+              "rb") as f:
+        image = pickle.load(f)["image"]
+    session = GenerationSession(run_dir,
+                                overrides={"batch_size": 1}).load()
+    want, _ = session.generate(first, use_gt=True)
+    del session
+    e_gen = check_close("generate's pkl vs the session", torch.from_numpy(
+        image), torch.from_numpy(want[0]), SESSION_TOL)
+    if imageio_ok and GIFS_SKIPPED.n:
+        raise AssertionError(f"{GIFS_SKIPPED.n} GIFs skipped with imageio")
+    gifs_skipped = GIFS_SKIPPED.n
+
+    fid_out = os.path.join(tmp, "new_dir", "fidelity.json")
+    if os.path.exists(os.path.dirname(fid_out)):
+        raise AssertionError("the output's directory exists beforehand")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fid = eval_fidelity_main(["--run_dir", run_dir, "--checkpoints",
+                                  "all", "--num_samples", "6", "--out",
+                                  fid_out])
+    fid_s = time.perf_counter() - t0
+    with open(fid_out) as f:
+        if json.load(f) != json.loads(json.dumps(fid)):
+            raise AssertionError("fidelity.json differs from the results")
+    rows = {r["step"]: r for r in fid["checkpoints"]}
+    for t in (0, 3, 6):
+        check_finite(f"fidelity itr_{t}", rows.get(t, {}),
+                     ("fidelity_fid", "fidelity_presence_acc"))
+    rr, nz = (fid["controls"][k]["fidelity_fid"]
+              for k in ("real_vs_real", "noise_vs_real"))
+    if not rr < nz:
+        raise AssertionError(f"real-vs-real {rr} not under noise-vs-real "
+                             f"{nz}")
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        summary = summarize_main([run_dir])
+    if json.loads(buf.getvalue()) != summary:
+        raise AssertionError("summarize_metrics printed another summary")
+    keys = ("G/total_loss", "D/total_img_loss", "Graph/total_loss")
+    for k in keys:
+        if not summary.get(k) or not all(np.isfinite(v)
+                                         for v in summary[k].values()):
+            raise AssertionError(f"summarize_metrics: {k} {summary.get(k)}")
+    print(f"phase 12 CLIs on phase 10's run: generate wrote {len(pkls)} "
+          f"pkls of {want_shape} finite frames, the first within "
+          f"{e_gen:.3e} of the session's use_gt frames, GIFS_SKIPPED "
+          f"{gifs_skipped} (imageio {'imports' if imageio_ok else 'missing'});"
+          f" eval_fidelity ({fid_s:.1f} s) FID " + ", ".join(
+              f"itr_{t} {r['fidelity_fid']:.3f}"
+              for t, r in sorted(rows.items()))
+          + f", real-vs-real {rr:.3f} < noise-vs-real {nz:.3f}, written to "
+          f"a new directory; summarize_metrics " + ", ".join(
+              f"{k} " + "/".join(f"{v:.4f}" for v in summary[k].values())
+              for k in keys) + f"; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -920,7 +1185,7 @@ def main():
                          "card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card()
+    found = phase_card()
     timing = phase_kernel()
     phase_grad()
     phase_small_model()
@@ -929,7 +1194,11 @@ def main():
     phase_full(factorized=True)
     phase_small_trainer()
     per_train_step, phase9_ms = phase_train_full()
-    per_train_step_fit = phase_fit(phase9_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        fit = phase_fit(phase9_ms, run_dir)
+        per_train_step_cater = phase_cater(tmp, fit)
+        phase_clis(run_dir, tmp, found["imageio"])
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -940,7 +1209,8 @@ def main():
     }, **timing["c"],
         library="torch.bmm(coverage (N, H*W, O) bf16, vecs (N, O, D) bf16)",
         launches_per_train_step=per_train_step,
-        launches_per_train_step_fit=per_train_step_fit,
+        launches_per_train_step_fit=fit["launches"],
+        launches_per_train_step_cater=per_train_step_cater,
         disc_shape="N=9 O=12 D=256 256x256 bf16",
         **{f"disc_{k}": v for k, v in disc.items()})]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ artifacts; and, by their code, the training run's host-side copies:
 data/synthetic.py, the registry's `Loader`, utils/tfevents.py,
 utils/logging.py, the `StepTimer`, eval/fid.py, the fidelity labels and
 `vis.save_images`
-(tests/test_torch_{data,eval}.py run them against the originals)."""
+(tests/test_torch_{data,eval}.py run them against the originals); the
+CATER and Something-Else loaders' data files (byte for byte), constants and
+pure functions (tests/test_torch_datasets.py runs the loaders against the
+originals)."""
 
 import ast
 import os
@@ -196,13 +199,109 @@ CODE_COPIES = {
     "labels": ("eval/backbone.py", ["presence_labels", "grid_labels",
                                     "load_backbone"], ()),
     "save_images": ("utils/vis.py", ["save_images"], ()),
+    "cater": ("data/cater.py", ["project_3d_points", "boxes_from_scene",
+                                "scene_actions", "normalize_actions",
+                                "choose_window", "extract_triplets",
+                                "extract_objs"], ()),
+    "smth": ("data/smth.py", ["geometric_predicate", "dedupe_boxes_metadata",
+                              "extract_triplets", "extract_actions",
+                              "extract_bounding_boxes", "choose_window"], ()),
 }
+
+
+def _methods(tree_nodes):
+    """Top-level nodes, with each class replaced by its methods."""
+    out = []
+    for n in tree_nodes:
+        if isinstance(n, ast.ClassDef):
+            out.extend(m for m in n.body if isinstance(m, ast.FunctionDef))
+        else:
+            out.append(n)
+    return out
+
+
+def _defs(rel_path, package, names, fixes=()):
+    """The functions and methods in `names`, as `_code` dumps them."""
+    with open(os.path.join(REPO, package, rel_path)) as f:
+        src = f.read().replace("ag2video_tpu", "ag2video_torch")
+    for old, new in fixes:
+        src = src.replace(old, new)
+    tree = _strip_docstrings(ast.parse(src))
+    return [ast.dump(n) for n in _methods(tree.body)
+            if getattr(n, "name", None) in names]
 
 
 @pytest.mark.parametrize("name", list(CODE_COPIES))
 def test_host_copies_are_the_originals(name):
     path, names, fixes = CODE_COPIES[name]
-    want = _code(path, "ag2video_tpu", names, fixes)
-    got = _code(path, "ag2video_torch", names)
+    if name in ("cater", "smth"):
+        want = _defs(path, "ag2video_tpu", names, fixes)
+        got = _defs(path, "ag2video_torch", names)
+    else:
+        want = _code(path, "ag2video_tpu", names, fixes)
+        got = _code(path, "ag2video_torch", names)
     assert len(want) == len(names or want) > 0
     assert got == want
+
+
+SPLIT_FILES = ["CATER/train.txt", "CATER/val_split.txt",
+               "CATER/test_split.txt", "SomethingElse/train.csv",
+               "SomethingElse/val_split.csv", "SomethingElse/test_split.csv"]
+
+
+@pytest.mark.parametrize("rel", SPLIT_FILES)
+def test_split_files_are_byte_copies(rel):
+    with open(os.path.join(REPO, "ag2video_tpu", "data", rel), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "ag2video_torch", "data", rel), "rb") as f:
+        assert f.read() == want
+    assert len(want) > 50_000
+
+
+def test_cater_constants_and_functions_match():
+    from ag2video_tpu.data import cater as j_cater
+    from ag2video_torch.data import cater as t_cater
+    from tests.test_datasets import make_cater_scene
+
+    for k in ("CATER_CAM", "SOURCE_W", "SOURCE_H", "MIN_ACTION_FRAMES"):
+        np.testing.assert_array_equal(getattr(t_cater, k),
+                                      getattr(j_cater, k))
+    assert t_cater.BOX_EXTENTS == j_cater.BOX_EXTENTS
+    assert t_cater.CORRUPT_VIDEOS == j_cater.CORRUPT_VIDEOS
+    vocab = get_vocab("cater")
+    for seed in range(4):
+        rng = np.random.RandomState(seed)
+        pts = rng.uniform(-3, 3, (9, 3))
+        np.testing.assert_array_equal(t_cater.project_3d_points(pts),
+                                      j_cater.project_3d_points(pts))
+        scene = make_cater_scene(n_objects=3 + seed, n_frames=40,
+                                 rng=np.random.RandomState(seed))
+        boxes = t_cater.boxes_from_scene(scene)
+        np.testing.assert_array_equal(boxes, j_cater.boxes_from_scene(scene))
+        acts = t_cater.scene_actions(scene, vocab)
+        np.testing.assert_array_equal(acts,
+                                      j_cater.scene_actions(scene, vocab))
+        for s, e in ((0, 12), (seed * 7, seed * 7 + 20), (30, 39)):
+            got = t_cater.normalize_actions(acts, boxes, s, e, vocab)
+            want = j_cater.normalize_actions(acts, boxes, s, e, vocab)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_smth_functions_match():
+    from ag2video_tpu.data import smth as j_smth
+    from ag2video_torch.data import smth as t_smth
+
+    rng = np.random.RandomState(0)
+    for _ in range(500):
+        a, b = np.sort(rng.uniform(0, 1, (2, 2, 2)), axis=1)
+        sbox = np.array([a[0, 0], a[1, 0], a[0, 1], a[1, 1]])
+        obox = np.array([b[0, 0], b[1, 0], b[0, 1], b[1, 1]])
+        if rng.rand() < 0.2:  # nested boxes
+            obox = sbox + np.array([0.01, 0.01, -0.01, -0.01])
+        for x, y in ((sbox, obox), (obox, sbox)):
+            assert t_smth.geometric_predicate(x, y) == \
+                j_smth.geometric_predicate(x, y)
+    meta = [{"name": f"{rng.randint(5)}.jpg", "k": i} for i in range(20)]
+    assert t_smth.dedupe_boxes_metadata(meta) == \
+        j_smth.dedupe_boxes_metadata(meta)

@@ -5,6 +5,8 @@ order and content (shuffled, the drop_last=False tail, host sharding, the
 refill of corrupt samples, `forever()` across epochs). All numpy, equal
 exactly."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -69,9 +71,19 @@ def test_get_dataset_partitions_match(graph_only):
 
 
 @pytest.mark.parametrize("name", ["cater", "smth_else"])
-def test_unported_datasets_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_registry.get_dataset(name, "train", Config(dataset=name))
+def test_unported_datasets_raise(name, tmp_path, monkeypatch):
+    """Once unported, now built from the shipped split files; without the
+    dataset's files an item comes back as the dataset's failure tuple (a
+    None tuple for CATER, (False, reason) for Something-Else), which the
+    Loader drops."""
+    monkeypatch.setenv("CATER_DATA_ROOT", str(tmp_path))
+    monkeypatch.setenv("SMTH_DATA_ROOT", str(tmp_path))
+    monkeypatch.setenv("SMTH_SPLITS_DIR", os.path.join(
+        os.path.dirname(t_registry.__file__), "SomethingElse"))
+    ds = t_registry.get_dataset(name, "train", Config(dataset=name))
+    assert len(ds) > 1000
+    item = ds[0]
+    assert item[0] is None or item[0] is False, item
 
 
 class Corrupt:

@@ -1,11 +1,12 @@
 """The port runs where JAX is absent: every ag2video_torch module (the
-training run's among them) and chip_smoke.py import with jax, flax and the
-JAX package itself
-(ag2video_tpu) blocked, and with imageio blocked too (the card machine
-lacks it; only `utils.vis.save_gif` imports it, when called), and a CPU
-call of the
-rasterizer launches no kernel. chip_smoke.py refuses to run without a card
-and prints no result."""
+training run's and the CLIs' among them) and chip_smoke.py import with jax,
+flax and the JAX package itself (ag2video_tpu) blocked, and with PIL,
+pandas, cv2 and imageio blocked too (a machine may lack them; they are
+imported only inside the functions that need them), and a CPU call of the
+rasterizer launches no kernel. The CATER training path (a PNG cache written
+and read, `clip_transform`'s default branch) runs with those four blocked,
+and the branches that need PIL say so. chip_smoke.py refuses to run
+without a card and prints no result."""
 
 import os
 import shutil
@@ -20,7 +21,7 @@ import importlib, importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "ag2video_tpu",
-                                  "imageio"):
+                                  "imageio", "PIL", "pandas", "cv2"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -59,13 +60,56 @@ def test_port_imports_without_jax():
     # every module of the package, not just the root: the training step's
     # losses, discriminator, vgg and train modules, and the training run's
     # data, evaluation, checkpoint, telemetry and CLI modules among them
-    assert n >= 49
+    assert n >= 56
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
                  "train.trainer", "train.checkpoint", "data.synthetic",
                  "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
                  "ops.metrics", "utils.logging", "utils.tfevents",
-                 "utils.profiling", "scripts.train"):
+                 "utils.profiling", "scripts.train", "data.native",
+                 "data.png", "data.transforms", "data.cater", "data.smth",
+                 "scripts.generate", "scripts.eval_fidelity",
+                 "scripts.summarize_metrics"):
         assert f"ag2video_torch.{name}" in proc.stdout
+
+
+CATER_WITHOUT_PIL = BLOCKED_IMPORTS.split("import ag2video_torch")[0] + r"""
+import os, sys, tempfile
+import numpy as np
+from torch_tools.cater_tree import make_tree
+from ag2video_torch.data.cater import CATERDataset
+from ag2video_torch.data.png import read_frame
+from ag2video_torch.data.transforms import clip_transform
+
+with tempfile.TemporaryDirectory() as d:
+    root, splits, names = make_tree(d, n_videos=2, nframes=60, n_objects=3,
+                                    size=(40, 30), threads=2)
+    ds = CATERDataset(os.path.join(splits, "train.txt"), root,
+                      image_size=(16, 16), frames_per_action=4,
+                      initial_frames_per_sample=12, nframes=60)
+    vids, objs, boxes, triplets, actions, name = ds[1]
+    assert vids.shape == (4, 16, 16, 3) and name.startswith(names[1])
+    frame = read_frame(os.path.join(root, "videos", names[0], "00007.png"))
+    assert frame.shape == (30, 40, 3) and frame.dtype == np.uint8
+    clip = clip_transform([frame] * 3, (12, 20))
+    assert clip.shape == (3, 12, 20, 3) and clip.dtype == np.float32
+    for call in (lambda: clip_transform([frame], (8, 8), "crop"),
+                 lambda: read_frame(os.path.join(d, "a.jpg"))):
+        try:
+            call()
+        except ImportError as e:
+            assert "PIL" in str(e), e
+        else:
+            raise AssertionError("a branch that needs PIL ran without it")
+assert not any(m.split(".")[0] in ("PIL", "pandas", "cv2", "imageio")
+               for m in sys.modules)
+print("CATER OK")
+"""
+
+
+def test_cater_path_runs_without_pil_pandas_cv2_imageio():
+    proc = _run(["-c", CATER_WITHOUT_PIL], REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CATER OK" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
