@@ -1,18 +1,19 @@
-"""Frechet distance and Inception Score math (a copy of
-ag2video_tpu/eval/fid.py:18-64, held equal to it by tests/test_torch_eval.py
-and tests/test_torch_copies.py; numpy and scipy). One call differs:
+"""Frechet distance, Inception Score math and the feature cache (a copy of
+ag2video_tpu/eval/fid.py, held equal to it by tests/test_torch_eval.py and
+tests/test_torch_copies.py; numpy and scipy). One call differs:
 `linalg.sqrtm` is called without `disp=False`, which newer scipy no longer
-accepts; the square root it returns is the same. `cached_features` comes
-with the eval scripts (ROADMAP.md).
+accepts; the square root it returns is the same.
 
 Reference: evaluation/fid/fid_score.py (TTUR image FID),
 evaluation/video/metrics/frechet_distance.py:5-65 and
-inception_score.py:4-12 (video metrics).
+inception_score.py:4-12 (video metrics), evaluation/video/score.py:23-102
+(the .npy feature-cache contract next to generated dirs).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Callable, Tuple
 
 import numpy as np
 from scipy import linalg
@@ -65,3 +66,19 @@ def inception_score_from_probs(probs: np.ndarray,
         kl = part * (np.log(part + 1e-12) - np.log(py + 1e-12))
         scores.append(np.exp(np.mean(np.sum(kl, axis=1))))
     return float(np.mean(scores)), float(np.std(scores))
+
+
+def cached_features(
+    directory: str,
+    extractor: Callable[[], np.ndarray],
+    cache_name: str = "features.npy",
+    force: bool = False,
+) -> np.ndarray:
+    """The reference's feature-cache contract: features saved as .npy next
+    to the generated/reference dir (video/score.py:27-31)."""
+    path = os.path.join(directory, cache_name)
+    if os.path.exists(path) and not force:
+        return np.load(path)
+    feats = np.asarray(extractor())
+    np.save(path, feats)
+    return feats

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ag2video_torch.models.layers import Conv
+from ag2video_torch.weights import from_flax
 
 log = logging.getLogger(__name__)
 
@@ -87,3 +88,13 @@ def load_vgg19_arrays(path: str = DEFAULT_WEIGHTS) -> Optional[dict]:
                                    "bias": data[f"conv_{i}_bias"]}
             i += 1
     return params or None
+
+
+def vgg19_from_arrays(arrays: dict) -> VGG19Features:
+    """A VGG19Features holding the asset's convs (`load_vgg19_arrays`),
+    strictly: every conv up to relu5_1. The asset's last three convs
+    (scripts/port_torch_weights.py keeps all 16) lie past the last tapped
+    slice and are not read, as the JAX module never reads them."""
+    model = VGG19Features()
+    return from_flax({"params": {f"conv_{i}": arrays[f"conv_{i}"]
+                                 for i in range(model.n_convs)}}, model)

@@ -27,8 +27,8 @@ from ag2video_torch.config import Config
 from ag2video_torch.models.discriminator import MultiscaleActionDiscriminator
 from ag2video_torch.models.meta import AG2VideoModel
 from ag2video_torch.models.vgg import (RANDOM_WEIGHTS_WARNING, VGG19Features,
-                                       load_vgg19_arrays)
-from ag2video_torch.weights import from_flax, init_params
+                                       load_vgg19_arrays, vgg19_from_arrays)
+from ag2video_torch.weights import init_params
 
 log = logging.getLogger(__name__)
 
@@ -124,7 +124,7 @@ def create_train_state(cfg: Config, vocab: Dict[str, Any],
     vgg_arrays = load_vgg19_arrays()
     vgg = None
     if vgg_arrays is not None:
-        vgg = from_flax({"params": vgg_arrays}, VGG19Features())
+        vgg = vgg19_from_arrays(vgg_arrays)
     elif not cfg.no_vgg_loss:
         log.warning(RANDOM_WEIGHTS_WARNING)
         vgg = init_params(VGG19Features(), cfg.seed + 2)

@@ -21,15 +21,15 @@ wrote, so params, optimizer state and norm state stay as they were; the
 
 The training run (reference scripts/train.py:398-513; JAX trainer.py:304-637)
 is `fit`: the loop over the loaders, the validation passes (`check_model`:
-layout IoU, and the synthetic fidelity score of the generated frames),
-checkpoints (`train/checkpoint.py`), the metrics stream and step timing.
+layout IoU; the Inception Score and the synthetic fidelity score of the
+generated frames), checkpoints (`train/checkpoint.py`), the metrics stream
+and step timing.
 
 `Trainer(cfg, vocab)` runs on the CUDA card and raises without one;
-`device="cpu"` runs on the CPU (the tests do). Not ported: the Inception
-Score of the val pass (`eval/inception.py`, ROADMAP.md), data parallel, and
-two pieces of TPU plumbing, the host-RSS watchdog (`rss_watchdog_gb`) and
-the donation-miscompile warning (`donate_step`): both stay in the config
-and are ignored.
+`device="cpu"` runs on the CPU (the tests do). Not ported: data parallel,
+and two pieces of TPU plumbing, the host-RSS watchdog (`rss_watchdog_gb`)
+and the donation-miscompile warning (`donate_step`): both stay in the
+config and are ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +45,10 @@ import torch
 from torch import nn
 
 from ag2video_torch.config import Config
+# INCEPTION_WEIGHTS: where the val Inception Score's asset is read.
+from ag2video_torch.eval.inception import DEFAULT_WEIGHTS as INCEPTION_WEIGHTS
+from ag2video_torch.eval.inception import (InceptionScore,
+                                           load_inception_params)
 from ag2video_torch.losses.loss_model import (compute_discriminator_loss,
                                               compute_generator_loss,
                                               compute_graph_loss)
@@ -91,11 +95,6 @@ def _finite(x: torch.Tensor) -> bool:
 # The exit code (EX_TEMPFAIL, "restart me") of a run that stopped at its
 # wall-clock deadline: a wrapper resumes it with --restore_checkpoint 1.
 DEADLINE_RC = 75
-# Where the Inception Score's pretrained weights would be (the JAX
-# package's eval/inception.py DEFAULT_WEIGHTS).
-INCEPTION_WEIGHTS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "assets", "inception_v3.npz")
 
 
 class Trainer:
@@ -282,19 +281,25 @@ class Trainer:
         return out
 
     def check_model(self, loader, use_gt: bool,
-                    max_samples: Optional[int] = None, fidelity_score=None):
+                    max_samples: Optional[int] = None, inception_score=None,
+                    fidelity_score=None):
         """Validation pass (reference check_model, train.py:136-252) ->
         (mean metrics, samples dict for the video artifacts). The IoU
-        triple is reported by the use_gt=False pass only; `fidelity_score`
-        (eval.backbone.FidelityScore) scores the generated frames, the
-        ground-truth seed frames dropped, against the same clips' real
-        frames."""
+        triple is reported by the use_gt=False pass only;
+        `inception_score` (eval.inception.InceptionScore) scores every
+        frame of the pass (reference train.py:175, 247) under the tag
+        `inception`, or `inception_randomnet` on random weights;
+        `fidelity_score` (eval.backbone.FidelityScore) scores the generated
+        frames, the ground-truth seed frames dropped, against the same
+        clips' real frames."""
         from ag2video_torch.eval.backbone import presence_labels
 
         max_samples = max_samples or self.cfg.num_val_samples
         tot = np.zeros(4)
         samples = {}
         n_seen = 0
+        if inception_score is not None:
+            inception_score.clean()
         if fidelity_score is not None:
             fidelity_score.clean()
         ncond = self.cfg.n_frames_G - 1  # conditioning frames pass through
@@ -302,6 +307,8 @@ class Trainer:
             b = self._batch(batch)
             imgs_pred, boxes_pred, stats = self._eval_forward(b, use_gt)
             tot += np.array([float(s) for s in stats])
+            if inception_score is not None:
+                inception_score(imgs_pred.reshape(-1, *imgs_pred.shape[2:]))
             if fidelity_score is not None:
                 fake = imgs_pred[:, ncond:]
                 T = fake.shape[1]
@@ -332,6 +339,12 @@ class Trainer:
             "total_iou_05": tot[1] / denom,
             "total_iou_03": tot[2] / denom,
         }
+        if inception_score is not None:
+            m, s = inception_score.compute_score(splits=5)
+            tag = "inception" if not inception_score.random_init \
+                else "inception_randomnet"
+            mean_losses[f"{tag}_mean"] = m
+            mean_losses[f"{tag}_std"] = s
         if fidelity_score is not None:
             mean_losses.update(fidelity_score.compute())
         return mean_losses, samples
@@ -348,27 +361,28 @@ class Trainer:
                                            for_inference=for_inference)
 
     # ------------------------------------------------------------------
-    def _scorers(self, val_loader):
-        """The val pass's fidelity scorer (None without one). The Inception
-        Score is not ported: with no pretrained asset the JAX trainer skips
-        it with a warning, as here; with one, this raises."""
+    def _scorers(self, val_loader, inception_score=None):
+        """The val pass's scorers -> (inception_score, fidelity_score), each
+        None when off. An injected `inception_score` is kept; otherwise,
+        with `val_inception`, one is built from the InceptionV3 asset, and
+        with no asset the Inception Score is skipped with a warning, as the
+        JAX trainer skips it."""
         cfg = self.cfg
         if val_loader is None or cfg.graph_only:
-            return None
-        if cfg.val_inception:
-            if os.path.exists(INCEPTION_WEIGHTS):
-                raise NotImplementedError(
-                    "the val Inception Score (eval/inception.py) is not "
-                    "ported yet: ROADMAP.md 'Modules not yet ported'; pass "
-                    "--val_inception 0")
-            log.warning(
-                "no pretrained InceptionV3 asset: SKIPPING the val "
-                "Inception Score — a random-init backbone scores a "
-                "constant ~1.0 (zero signal) and costs an inception "
-                "forward per val frame; port weights via "
-                "scripts/port_torch_weights.py to enable it")
+            return inception_score, None
+        if inception_score is None and cfg.val_inception:
+            params = load_inception_params(INCEPTION_WEIGHTS)
+            if params is not None:
+                inception_score = InceptionScore(params, device=self.device)
+            else:
+                log.warning(
+                    "no pretrained InceptionV3 asset: SKIPPING the val "
+                    "Inception Score — a random-init backbone scores a "
+                    "constant ~1.0 (zero signal) and costs an inception "
+                    "forward per val frame; port weights via "
+                    "scripts/port_torch_weights.py to enable it")
         if not (cfg.val_fidelity and cfg.dataset == "synthetic"):
-            return None
+            return inception_score, None
         from ag2video_torch.eval.backbone import (DEFAULT_WEIGHTS,
                                                   FidelityScore,
                                                   load_backbone)
@@ -379,16 +393,19 @@ class Trainer:
                 "no synthetic fidelity backbone asset (%s): the use_gt "
                 "val pass reports no pixel-quality metric — train one "
                 "with `python -m scripts.train_backbone`", path)
-            return None
-        return FidelityScore(loaded[0], device=self.device)
+            return inception_score, None
+        return inception_score, FidelityScore(loaded[0], device=self.device)
 
-    def _validate(self, val_loader, t: int, fidelity_score, metrics_writer):
-        """Both validation passes at step t, their metrics and videos."""
+    def _validate(self, val_loader, t: int, scorers, metrics_writer):
+        """Both validation passes at step t, their metrics and videos; the
+        use_gt pass takes the `scorers` of `_scorers`."""
         from ag2video_torch.utils.vis import save_images
 
+        inception_score, fidelity_score = scorers
         for use_gt in (True, False):
             m, samples = self.check_model(
                 val_loader, use_gt,
+                inception_score=inception_score if use_gt else None,
                 fidelity_score=fidelity_score if use_gt else None)
             tag = "use_gt" if use_gt else "no_use_gt"
             log.info("val[%s] @%d: %s", tag, t, m or "(artifacts only)")
@@ -407,9 +424,13 @@ class Trainer:
             num_iterations: Optional[int] = None,
             log_every: Optional[int] = None,
             checkpoint_every: Optional[int] = None,
-            metrics_writer=None, timing: bool = False):
+            metrics_writer=None, timing: bool = False,
+            inception_score=None):
         """The reference main loop (train.py:398-513), host side; returns the
-        last iteration's metrics.
+        last iteration's metrics. The use_gt validation pass scores the
+        generated frames with `inception_score` when given (tests inject
+        one), else with one built from the InceptionV3 asset when
+        cfg.val_inception is set (`_scorers`).
 
         Saves at t % checkpoint_every == 0 (async; every
         full_checkpoint_every_n-th one full, the rest light), except at the
@@ -424,7 +445,7 @@ class Trainer:
                                                     stop_trace)
 
         cfg = self.cfg
-        fidelity_score = self._scorers(val_loader)
+        scorers = self._scorers(val_loader, inception_score)
         num_iterations = num_iterations or cfg.num_iterations
         log_every = log_every or cfg.print_every
         checkpoint_every = checkpoint_every or cfg.checkpoint_every
@@ -453,8 +474,7 @@ class Trainer:
                 self.save_checkpoint(cfg.output_dir, t, 0, block=False,
                                      light=light)
                 if val_loader is not None:
-                    self._validate(val_loader, t, fidelity_score,
-                                   metrics_writer)
+                    self._validate(val_loader, t, scorers, metrics_writer)
             if not cfg.graph_only:
                 last.update(self.train_step(next(train_iter)))
             last.update(self.graph_step(next(graph_iter)))

@@ -7,6 +7,7 @@ is used. The port's module tree mirrors the flax tree, so the mapping is by
 name:
 
   params      .../kernel (HWIO)     -> .../weight (OIHW)
+              .../kernel (THWIO)    -> .../weight (OITHW)     (3-D conv)
               .../kernel (in, out)  -> .../weight (out, in)   (Dense)
               .../embedding         -> .../weight             (Embed)
               .../scale, .../bias   -> .../weight, .../bias   (BatchNorm)
@@ -27,6 +28,10 @@ variance, N(0, 1) spectral `u`, N(0, 1/features) factorized `u`) from one
 
 `load_flax_npz(path, model)` loads an exported run's weights, an .npz in
 the layout of flax_npz.py (written by torch_tools/export_run_weights.py).
+`read_asset(path)` reads an evaluation network's asset (written by
+scripts/port_torch_weights.py, the JAX package's or the port's): the
+pickled `{"params", "batch_stats"}` tree of numpy arrays in its `params`
+entry, read with numpy and pickle alone; `from_flax` then loads it.
 
 The same mapping loads the discriminator (`gcn_step/*` under its scan,
 `fc_objs_vecs`, `discriminator_{i}/model{n}/...` and its `spectral`
@@ -43,7 +48,7 @@ where `optax.masked` leaves a subtree to the other optimizer) become
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -69,6 +74,8 @@ def flax_to_state_dict(
                     raise KeyError(f"unknown param leaf {'/'.join(path)}")
                 if name == "kernel" and arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                elif name == "kernel" and arr.ndim == 5:
+                    arr = arr.transpose(4, 3, 0, 1, 2)  # THWIO -> OITHW
                 elif name == "kernel" and arr.ndim == 2:
                     arr = arr.T  # (in, out) -> (out, in)
                 key = mod + [_PARAM_LEAVES[name]]
@@ -96,6 +103,18 @@ def flax_to_state_dict(
 def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
     """Load an .npz of flax variables (flax_npz.py) into `model` strictly."""
     return from_flax(read_flax_npz(path), model)
+
+
+def read_asset(path: str) -> Optional[Dict[str, Any]]:
+    """The flax tree pickled in an evaluation asset's `params` entry
+    (scripts/port_torch_weights.py `_save_tree`), or None when the .npz has
+    no such entry."""
+    import pickle
+
+    with np.load(path) as data:
+        if "params" not in data:
+            return None
+        return pickle.loads(data["params"].tobytes())
 
 
 def from_flax(variables: Mapping[str, Any], model: nn.Module) -> nn.Module:

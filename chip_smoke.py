@@ -74,7 +74,23 @@ Phases, each printing one line (any failure raises and exits nonzero):
    skipped where imageio is missing, counted), `scripts.eval_fidelity`
    (every checkpoint's finite FID, into a directory that did not exist,
    real-vs-real under noise-vs-real) and `scripts.summarize_metrics` (the
-   G, D and Graph losses).
+   G, D and Graph losses);
+13. the evaluation stack: seeded state dicts in the pretrained layouts of
+   InceptionV3, AlexNet/LPIPS, TSM-ResNet50 and ResNeXt3D-101
+   (torch_tools/eval_assets.py) turned into assets in a temporary
+   directory by `scripts.port_torch_weights.main`; each network from its
+   asset on the card and on the CPU in fp32 (InceptionV3 at 299x299, LPIPS
+   at 64x64, both video backbones at full depth on 16x112x112 clips, B=8):
+   their rel-L2 (bound 1e-4), images/s or clips/s and peak memory on the
+   card; `scripts.evaluate.main` in all six modes on the card (its
+   default) on the renders of phase 10's run at itr_3 and itr_6 (.pkl
+   clips, and PNGs of their last frames written by data/png.py), with no
+   assets so on seeded random networks: every value finite, A against
+   itself 0 (LPIPS) or ~0 (FID), the seconds of each call; `check_model`
+   (use_gt) on phase 10's trainer, restored from the run's newest
+   checkpoint, with an InceptionScore from the fabricated asset: a finite
+   `inception_mean` / `inception_std`. The rasterizer is not on this path
+   (0 launches).
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -99,8 +115,14 @@ import torch
 
 from ag2video_torch import Config, get_vocab
 from ag2video_torch.flax_npz import COLLECTIONS
-from ag2video_torch.data.png import read_png
-from ag2video_torch.data.transforms import clip_transform
+from ag2video_torch.data.png import read_png, write_png
+from ag2video_torch.data.transforms import clip_transform, denormalize
+from ag2video_torch.eval.inception import (InceptionScore, inception_v3,
+                                           load_inception_params)
+from ag2video_torch.eval.layers import load_variables
+from ag2video_torch.eval.lpips import LPIPS
+from ag2video_torch.eval.video_backbones import (BACKBONES,
+                                                 load_backbone_params)
 from ag2video_torch.inference import GenerationSession, generate, make_inputs
 from ag2video_torch.inference.generate import GIFS_SKIPPED
 from ag2video_torch.models import AG2VideoModel
@@ -110,13 +132,17 @@ from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
 from ag2video_torch.scripts.eval_fidelity import main as eval_fidelity_main
+from ag2video_torch.scripts.evaluate import _inception_pool3, _load_images
+from ag2video_torch.scripts.evaluate import main as evaluate_main
 from ag2video_torch.scripts.generate import main as generate_main
 from ag2video_torch.scripts.summarize_metrics import main as summarize_main
 from ag2video_torch.scripts.train import main as train_main
 from ag2video_torch.train import Trainer
 from ag2video_torch.train import checkpoint as ckpt_lib
+from ag2video_torch.utils.vis import save_video_pickle
 from ag2video_torch.weights import init_params
 from torch_tools.cater_tree import make_tree
+from torch_tools.eval_assets import write_assets
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
              max_triplets=6, max_actions=2, embedding_dim=16, gconv_dim=16,
@@ -1179,6 +1205,195 @@ def phase_clis(run_dir, tmp, imageio_ok):
               for k in keys) + f"; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 13: the networks at the shapes scripts.evaluate gives them, fp32.
+EVAL_NETS = ("inception", "lpips_alex", "tsm", "resnext3d")
+EVAL_B = 8
+EVAL_CLIP = (16, 112, 112)   # VideoFeatureExtractor's frames and size
+EVAL_REL_L2 = 1e-4           # card against CPU, TF32 off
+# Clips per directory (renders of phase 10's run): PRD's 20 clusters need
+# points; 14 batches of the run's B=3.
+EVAL_BATCHES = 14
+
+
+def rel_l2(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite output")
+    return float((got - ref).norm() / ref.norm())
+
+
+def eval_net(net, path, device):
+    """(forward on seeded inputs -> one flat tensor, what one call counts
+    as images or clips) of `net` from its asset at `path` on `device`."""
+    g = torch.Generator().manual_seed(13)
+    if net == "inception":
+        model, random_init = inception_v3(load_inception_params(path),
+                                          device)
+        x = torch.randn(EVAL_B, 299, 299, 3, generator=g).to(device)
+        fn = lambda: torch.cat(model(x), -1)  # noqa: E731
+    elif net == "lpips_alex":
+        lp = LPIPS(path, device=device)
+        random_init = lp.random_init
+        x, y = (torch.rand(EVAL_B, 64, 64, 3, generator=g).to(device) * 2 - 1
+                for _ in range(2))
+        fn = lambda: lp.distance(x, y)  # noqa: E731
+    else:
+        backbone = "tsm" if net == "tsm" else "resnext"
+        model, random_init = load_variables(
+            BACKBONES[backbone](), load_backbone_params(backbone, path),
+            device)
+        x = torch.rand(EVAL_B, *EVAL_CLIP, 3, generator=g).to(device)
+        fn = lambda: model(x)  # noqa: E731
+    if random_init:
+        raise AssertionError(f"{net}: the asset was not loaded")
+
+    def run():
+        with torch.no_grad():
+            return fn().reshape(-1)
+    return run
+
+
+def time_card(fn, reps=5):
+    """(ms per call on the card, host clock around synchronised calls after
+    a warm-up call; peak memory over the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (1e3 * (time.perf_counter() - t0) / reps,
+            torch.cuda.max_memory_allocated())
+
+
+def render_clips(run_dir, t, out, cfg, vocab):
+    """The session of phase 10's itr_<t> renders EVAL_BATCHES seeded batches
+    into out/clips/<i>.pkl, and each clip's last frame into
+    out/frames/<i>.png -> (clips dir, frames dir)."""
+    session = GenerationSession(
+        run_dir, checkpoint=ckpt_lib.checkpoint_path(run_dir, t)).load()
+    clips, frames = os.path.join(out, "clips"), os.path.join(out, "frames")
+    os.makedirs(frames)
+    n = 0
+    for seed in range(EVAL_BATCHES):
+        batch = make_inputs(cfg, vocab, cfg.batch_size,
+                            cfg.frames_per_action, seed=100 + seed)
+        imgs, boxes = session.generate(batch)
+        for video, box in zip(imgs, boxes):
+            save_video_pickle(os.path.join(clips, f"{n:03d}.pkl"), video, box)
+            write_png(os.path.join(frames, f"{n:03d}.png"),
+                      np.round(denormalize(video[-1]) * 255).astype(np.uint8))
+            n += 1
+    del session
+    return clips, frames
+
+
+def phase_eval(run_dir, tmp):
+    """Phase 13 on phase 10's run directory."""
+    from ag2video_torch.data.registry import Loader, get_dataset
+
+    t_phase = time.perf_counter()
+    assets = write_assets(os.path.join(tmp, "eval_assets"), seed=0,
+                          nets=EVAL_NETS)
+    asset_s = time.perf_counter() - t_phase
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    nets = []
+    for net in EVAL_NETS:
+        card = eval_net(net, assets[net], torch.device("cuda"))
+        cpu = eval_net(net, assets[net], torch.device("cpu"))
+        t0 = time.perf_counter()
+        want = cpu()
+        cpu_s = time.perf_counter() - t0
+        err = rel_l2(card(), want)
+        if not err <= EVAL_REL_L2:
+            raise AssertionError(f"{net}: card vs CPU rel-L2 {err:.3e}")
+        ms, peak = time_card(card)
+        del card, cpu
+        torch.cuda.empty_cache()
+        unit = "images" if net in ("inception", "lpips_alex") else "clips"
+        nets.append(f"{net} rel-L2 {err:.2e}, {EVAL_B / ms * 1e3:.1f} {unit}"
+                    f"/s ({ms:.2f} ms per B={EVAL_B} call; CPU "
+                    f"{cpu_s:.2f} s), peak {peak / 2**30:.2f} GiB")
+
+    cfg, vocab = Config.load_run_args(run_dir)
+    t0 = time.perf_counter()
+    gen, gen_png = render_clips(run_dir, 3, os.path.join(tmp, "eval_gen"),
+                                cfg, vocab)
+    ref, ref_png = render_clips(run_dir, 6, os.path.join(tmp, "eval_ref"),
+                                cfg, vocab)
+    render_s = time.perf_counter() - t0
+    resnext = ("--backbone", "resnext")
+    calls = {"image_fid": ("image_fid", gen_png, ref_png),
+             "image_fid A,A": ("image_fid", gen_png, gen_png),
+             "is": ("is", gen_png),
+             "lpips_dirs": ("lpips_dirs", gen_png, ref_png),
+             "lpips_dirs A,A": ("lpips_dirs", gen_png, gen_png),
+             "video_fid tsm": ("video_fid", gen, ref),
+             "video_fid tsm A,A": ("video_fid", gen, gen),
+             "video_prd tsm": ("video_prd", gen, ref),
+             "video_prd resnext": ("video_prd", gen, ref) + resnext,
+             "video_fid resnext": ("video_fid", gen, ref) + resnext,
+             "lpips_videos": ("lpips_videos", gen, ref),
+             "lpips_videos A,A": ("lpips_videos", gen, gen)}
+    results, seconds = {}, {}
+    for label, argv in calls.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            r = evaluate_main(list(argv))
+        seconds[label] = time.perf_counter() - t0
+        if json.loads(buf.getvalue().strip().splitlines()[-1]) != \
+                json.loads(json.dumps(r)):
+            raise AssertionError(f"{label}: printed another result")
+        check_finite(label, r, list(r))
+        results[label] = r
+    # A against itself: LPIPS 0; FID ~0 against the features' own scale.
+    n_clips = len(glob.glob(os.path.join(gen, "*.pkl")))
+    feats, _ = _inception_pool3(_load_images(gen_png))
+    cached = np.load(os.path.join(gen, "features_tsm.npy"))
+    for label, f in (("image_fid A,A", feats), ("video_fid tsm A,A", cached)):
+        fid = list(results[label].values())[0]
+        scale = 2 * np.trace(np.cov(f, rowvar=False))
+        if not abs(fid) <= 1e-3 * scale:
+            raise AssertionError(f"{label}: {fid} against scale {scale}")
+    for label in ("lpips_dirs A,A", "lpips_videos A,A"):
+        if results[label]["lpips"] != 0.0:
+            raise AssertionError(f"{label}: {results[label]}")
+    if results["lpips_videos"]["n_pairs"] != n_clips or n_clips < 40:
+        raise AssertionError(f"{n_clips} clips, lpips_videos paired "
+                             f"{results['lpips_videos']['n_pairs']}")
+
+    # Phase 10's trainer, restored from its run's newest checkpoint, scores
+    # its use_gt pass with the fabricated InceptionV3.
+    val = Loader(get_dataset("synthetic", "val", cfg), cfg, shuffle=False)
+    trainer = Trainer(cfg, vocab)
+    trainer.init(next(val.epoch(0)))
+    trainer.restore_checkpoint(run_dir)
+    scorer = InceptionScore(load_inception_params(assets["inception"]))
+    t0 = time.perf_counter()
+    m, _ = trainer.check_model(val, use_gt=True, inception_score=scorer)
+    check_s = time.perf_counter() - t0
+    check_finite("check_model", m, ("inception_mean", "inception_std"))
+    del trainer, scorer
+    if KERNEL_LAUNCHES.n or PLAIN_CALLS.n:
+        raise AssertionError("the evaluation stack rasterized")
+    print(f"phase 13 evaluation stack: assets for {', '.join(EVAL_NETS)} "
+          f"written by port_torch_weights in {asset_s:.1f} s; card vs CPU, "
+          f"fp32, seeded weights from the assets: " + "; ".join(nets)
+          + f"; {n_clips} clips of {cfg.frames_per_action} frames per "
+          f"directory rendered by phase 10's itr_3 (A) / itr_6 (B) in "
+          f"{render_s:.1f} s; scripts.evaluate on the card, seeded random "
+          f"networks (no assets): " + ", ".join(
+              f"{label} {json.dumps(results[label])} ({seconds[label]:.1f} s)"
+              for label in calls)
+          + f"; check_model (use_gt, {cfg.num_val_samples} clips) on phase "
+          f"10's itr_{ckpt_lib.latest_checkpoint(run_dir).rsplit('_', 1)[1]}"
+          f" with the fabricated InceptionV3: {json.dumps(m)} in "
+          f"{check_s:.2f} s; rasterizer launches 0; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
@@ -1199,6 +1414,7 @@ def main():
         fit = phase_fit(phase9_ms, run_dir)
         per_train_step_cater = phase_cater(tmp, fit)
         phase_clis(run_dir, tmp, found["imageio"])
+        phase_eval(run_dir, tmp)
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",

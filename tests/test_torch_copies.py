@@ -5,7 +5,11 @@ artifacts; and, by their code, the training run's host-side copies:
 data/synthetic.py, the registry's `Loader`, utils/tfevents.py,
 utils/logging.py, the `StepTimer`, eval/fid.py, the fidelity labels and
 `vis.save_images`
-(tests/test_torch_{data,eval}.py run them against the originals); the
+(tests/test_torch_{data,eval}.py run them against the originals), and the
+evaluation stack's: eval/fid.py's `cached_features`, eval/prd.py,
+eval/action_metrics.py, eval/video_score.py's `load_clip` and
+scripts/port_torch_weights.py (tests/test_torch_eval_stack.py runs them
+against the originals); the
 CATER and Something-Else loaders' data files (byte for byte), constants and
 pure functions (tests/test_torch_datasets.py runs the loaders against the
 originals)."""
@@ -162,12 +166,12 @@ def _strip_docstrings(node):
     return node
 
 
-def _code(rel_path, package, names=None, fixes=()):
-    """The module's code without docstrings and top-level imports (or only
-    the top-level definitions in `names`), as AST dumps; the JAX package's
-    name reads as the port's, and each (old, new) of `fixes` is applied to
-    the source first."""
-    with open(os.path.join(REPO, package, rel_path)) as f:
+def _code(path, names=None, fixes=()):
+    """The module's code (`path` from the repository's root) without
+    docstrings and top-level imports (or only the top-level definitions in
+    `names`), as AST dumps; the JAX package's name reads as the port's,
+    and each (old, new) of `fixes` is applied to the source first."""
+    with open(os.path.join(REPO, path)) as f:
         src = f.read().replace("ag2video_tpu", "ag2video_torch")
     for old, new in fixes:
         assert old in src, old
@@ -185,6 +189,8 @@ def _code(rel_path, package, names=None, fixes=()):
 
 # (module, top-level names or None for the whole module, source fixes
 # applied to the JAX original: the one call the port changed on purpose).
+# The module's path is the same under both packages, or a pair (JAX
+# original, port copy) from the repository's root.
 CODE_COPIES = {
     "synthetic": ("data/synthetic.py", None, ()),
     "loader": ("data/registry.py", ["Loader"], ()),
@@ -206,6 +212,13 @@ CODE_COPIES = {
     "smth": ("data/smth.py", ["geometric_predicate", "dedupe_boxes_metadata",
                               "extract_triplets", "extract_actions",
                               "extract_bounding_boxes", "choose_window"], ()),
+    "cached_features": ("eval/fid.py", ["cached_features"], ()),
+    "prd": ("eval/prd.py", None, ()),
+    "action_metrics": ("eval/action_metrics.py", None, ()),
+    "load_clip": ("eval/video_score.py", ["load_clip"], ()),
+    "port_torch_weights": (("scripts/port_torch_weights.py",
+                            "ag2video_torch/scripts/port_torch_weights.py"),
+                           None, ()),
 }
 
 
@@ -220,9 +233,9 @@ def _methods(tree_nodes):
     return out
 
 
-def _defs(rel_path, package, names, fixes=()):
+def _defs(path, names, fixes=()):
     """The functions and methods in `names`, as `_code` dumps them."""
-    with open(os.path.join(REPO, package, rel_path)) as f:
+    with open(os.path.join(REPO, path)) as f:
         src = f.read().replace("ag2video_tpu", "ag2video_torch")
     for old, new in fixes:
         src = src.replace(old, new)
@@ -234,12 +247,15 @@ def _defs(rel_path, package, names, fixes=()):
 @pytest.mark.parametrize("name", list(CODE_COPIES))
 def test_host_copies_are_the_originals(name):
     path, names, fixes = CODE_COPIES[name]
+    original, copy = path if isinstance(path, tuple) else (
+        os.path.join("ag2video_tpu", path), os.path.join("ag2video_torch",
+                                                         path))
     if name in ("cater", "smth"):
-        want = _defs(path, "ag2video_tpu", names, fixes)
-        got = _defs(path, "ag2video_torch", names)
+        want = _defs(original, names, fixes)
+        got = _defs(copy, names)
     else:
-        want = _code(path, "ag2video_tpu", names, fixes)
-        got = _code(path, "ag2video_torch", names)
+        want = _code(original, names, fixes)
+        got = _code(copy, names)
     assert len(want) == len(names or want) > 0
     assert got == want
 

@@ -393,23 +393,31 @@ def test_latest_weights_reads_the_port_checkpoints(data, tmp_path):
 def test_val_inception_is_skipped_without_its_asset(data, tmp_path,
                                                     monkeypatch, caplog):
     """With no Inception asset (this repository has none) the val pass
-    skips the Inception Score with the JAX warning; with one it refuses,
-    since eval/inception.py is not ported. The fidelity scorer is built
-    from the committed backbone either way."""
+    skips the Inception Score with the JAX warning; with one it builds an
+    InceptionScore from it (pretrained, not random_init) on the trainer's
+    device; an injected scorer is kept. The fidelity scorer is built from
+    the committed backbone either way."""
     from ag2video_torch.eval.backbone import FidelityScore
+    from ag2video_torch.eval.inception import InceptionScore
+    from ag2video_torch.scripts.port_torch_weights import port_inception
     from ag2video_torch.train import trainer as trainer_mod
+    from torch_tools.eval_assets import state_dicts
 
     cfg = data["cfg"].replace(val_inception=True)
     a = trainer_for(data, cfg)
-    monkeypatch.setattr(trainer_mod, "INCEPTION_WEIGHTS",
-                        str(tmp_path / "inception_v3.npz"))
+    asset = str(tmp_path / "inception_v3.npz")
+    monkeypatch.setattr(trainer_mod, "INCEPTION_WEIGHTS", asset)
     with caplog.at_level("WARNING"):
-        scorer = a._scorers(data["val"])
-    assert isinstance(scorer, FidelityScore)
+        inception, fidelity = a._scorers(data["val"])
+    assert inception is None and isinstance(fidelity, FidelityScore)
     assert "SKIPPING the val Inception Score" in caplog.text
-    assert a._scorers(None) is None
-    (tmp_path / "inception_v3.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a._scorers(data["val"])
+    assert a._scorers(None) == (None, None)
+    port_inception(state_dicts("inception")[0], asset)
+    inception, fidelity = a._scorers(data["val"])
+    assert isinstance(inception, InceptionScore)
+    assert not inception.random_init and inception.device.type == "cpu"
+    assert isinstance(fidelity, FidelityScore)
+    injected = object()
+    assert a._scorers(data["val"], inception_score=injected)[0] is injected
     a.cfg = cfg.replace(val_inception=False, val_fidelity=False)
-    assert a._scorers(data["val"]) is None
+    assert a._scorers(data["val"]) == (None, None)

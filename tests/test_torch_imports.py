@@ -1,5 +1,6 @@
 """The port runs where JAX is absent: every ag2video_torch module (the
-training run's and the CLIs' among them) and chip_smoke.py import with jax,
+training run's, the evaluation stack's and the CLIs' among them) and
+chip_smoke.py import with jax,
 flax and the JAX package itself (ag2video_tpu) blocked, and with PIL,
 pandas, cv2 and imageio blocked too (a machine may lack them; they are
 imported only inside the functions that need them), and a CPU call of the
@@ -58,9 +59,10 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
     # every module of the package, not just the root: the training step's
-    # losses, discriminator, vgg and train modules, and the training run's
-    # data, evaluation, checkpoint, telemetry and CLI modules among them
-    assert n >= 56
+    # losses, discriminator, vgg and train modules, the training run's
+    # data, evaluation, checkpoint, telemetry and CLI modules, and the
+    # evaluation stack's networks, metrics and CLIs among them
+    assert n >= 65
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
                  "train.trainer", "train.checkpoint", "data.synthetic",
                  "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
@@ -68,7 +70,10 @@ def test_port_imports_without_jax():
                  "utils.profiling", "scripts.train", "data.native",
                  "data.png", "data.transforms", "data.cater", "data.smth",
                  "scripts.generate", "scripts.eval_fidelity",
-                 "scripts.summarize_metrics"):
+                 "scripts.summarize_metrics", "eval.layers", "eval.inception",
+                 "eval.lpips", "eval.video_backbones", "eval.video_score",
+                 "eval.prd", "eval.action_metrics", "scripts.evaluate",
+                 "scripts.port_torch_weights"):
         assert f"ag2video_torch.{name}" in proc.stdout
 
 

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import torch
 
 from ag2video_tpu.data.collate import Batch
+from ag2video_tpu.eval import inception as j_inception
 from ag2video_tpu.losses.gan import gan_loss as j_gan_loss
 from ag2video_tpu.losses.gan import multiscale_gan_loss as j_multiscale
 from ag2video_tpu.losses.loss_model import \
@@ -42,11 +43,13 @@ from ag2video_tpu.losses.loss_model import \
     compute_generator_loss as j_gen_loss
 from ag2video_tpu.train.trainer import Trainer as JTrainer
 from ag2video_torch.config import Config
+from ag2video_torch.eval import inception as t_inception
 from ag2video_torch.inference import make_inputs
 from ag2video_torch.losses.gan import gan_loss, multiscale_gan_loss
 from ag2video_torch.train import Trainer
 from ag2video_torch.weights import (_unmasked, adam_state,
                                     flax_to_state_dict, trainer_from_flax)
+from tests.test_torch_eval_nets import variables
 from tests.test_train import tiny_config
 
 torch.set_num_threads(2)
@@ -71,6 +74,10 @@ STATE_ATOL = 1e-5
 # Second step: the first update took rounding-level gradient elements to
 # +-lr on either side (observed <= 3e-4).
 STEP2_RTOL = 1e-3
+# The val Inception Score: InceptionV3 in fp32 on both sides, logits
+# recentred on the pass's features, where fp32 rounding is ~600x their
+# spread (observed 1.7e-6 on the mean, 3.4e-5 on the std).
+INCEPTION_RTOL = 1e-4
 
 
 def _jbatch(b):
@@ -355,6 +362,30 @@ def _port_moments(opt, module):
             for p, st in opt.state.items()}, opt.count
 
 
+def inception_variables(trainer, val):
+    """Seeded InceptionV3 variables whose logits carry the use_gt pass's
+    differences between frames: a deep net of seeded weights maps every
+    frame to nearly the same pool3 (spread ~2e-3 of its size), so `fc`
+    is a random projection of pool3 less its mean over the pass, scaled
+    to unit spread (the features that are 0 on every frame get no
+    weight); elsewhere the score would be 1 on both sides."""
+    v = variables(j_inception.InceptionV3(), (1, 96, 96, 3))
+    net, _ = t_inception.inception_v3(v, device="cpu")
+    frames = torch.cat([trainer.eval_batch(b, use_gt=True)[0].flatten(0, 1)
+                        for b in val.epoch(0)])
+    with torch.no_grad():
+        _, pool3 = net(t_inception.resize_bilinear(frames, (299, 299)))
+    f = pool3.numpy().astype(np.float64)
+    sd = f.std(0)
+    live = sd > 0
+    inv = np.where(live, 1.0 / np.where(live, sd, 1.0), 0.0)
+    k = np.random.RandomState(7).randn(2048, 1000) * inv[:, None] / \
+        np.sqrt(live.sum())
+    v["params"]["fc"] = {"kernel": k.astype(np.float32),
+                         "bias": (-(f.mean(0) @ k)).astype(np.float32)}
+    return v
+
+
 OPTS = (("opt_graph", "opt_graph_state", "model"),
         ("opt_gen", "opt_gen_state", "model"),
         ("opt_d", "opt_d_state", "disc"))
@@ -387,6 +418,12 @@ def carried(parity):
         out["sigma"] = (jt.spectral_stats(), tt.spectral_stats())
         out["iou"] = (jt.check_model(val, use_gt=False)[0],
                       tt.check_model(val, use_gt=False)[0])
+        v = inception_variables(tt, val)
+        out["inception"] = (
+            jt.check_model(val, use_gt=True, inception_score=j_inception.
+                           InceptionScore(v))[0],
+            tt.check_model(val, use_gt=True, inception_score=t_inception.
+                           InceptionScore(v, device="cpu"))[0])
     finally:
         jt.state = live
 
@@ -439,6 +476,17 @@ def test_check_model_iou_matches(carried):
     assert 0.0 < want["avg_iou"] < 1.0
     for k in ("total_iou_05", "total_iou_03"):
         assert got[k] == want[k], k
+
+
+def test_check_model_inception_score_matches(carried):
+    """The use_gt pass's Inception Score over the same two batches, the
+    same InceptionV3 variables on both sides (pretrained: `inception`)."""
+    want, got = carried["inception"]
+    assert set(got) == set(want) == {"inception_mean", "inception_std"}
+    for k in want:
+        assert np.isclose(got[k], want[k], rtol=INCEPTION_RTOL, atol=0), \
+            (k, got[k], want[k])
+    assert want["inception_mean"] > 1.2 and want["inception_std"] > 0.05
 
 
 def test_carried_state_takes_the_jax_second_step(carried, parity):

@@ -68,20 +68,17 @@ def device_us(e) -> float:
     return float(t if t is not None else e.cuda_time_total)
 
 
-def profile_frontend(factorized: bool) -> dict:
-    vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", factorized_frontend=factorized,
-                 **cs.FULL).derive(vocab)
-    B, T = 2, cfg.frames_per_action
-    batch = make_inputs(cfg, vocab, B, T, seed=0)
-    model = AG2VideoModel(cfg, vocab)
+def profile_calls(fn, label: str) -> dict:
+    """WARMUP calls of `fn`, UNPROFILED timed ones, each between two
+    `torch.cuda.synchronize()`, then PROFILED traced ones -> the numbers
+    the module docstring lists, printed under `label`."""
     for _ in range(WARMUP):
-        generate(model, batch)
+        fn()
     calls_ms = []
     for _ in range(UNPROFILED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        generate(model, batch)
+        fn()
         torch.cuda.synchronize()
         calls_ms.append((time.perf_counter() - t0) * 1e3)
     call_ms = statistics.median(calls_ms)
@@ -89,7 +86,7 @@ def profile_frontend(factorized: bool) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
-            generate(model, batch)
+            fn()
         torch.cuda.synchronize()
     by_cat, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     kernels = aten = 0
@@ -104,7 +101,7 @@ def profile_frontend(factorized: bool) -> dict:
             aten += 1
     kernel_ms = sum(by_cat.values()) / 1e3 / PROFILED
     out = dict(
-        frontend="factorized" if factorized else "dense",
+        label=label,
         unprofiled_call_ms=call_ms, unprofiled_calls_ms=calls_ms,
         kernel_ms_per_call=kernel_ms,
         busy_share=kernel_ms / call_ms,
@@ -114,7 +111,7 @@ def profile_frontend(factorized: bool) -> dict:
         top_kernels=[(n[:120], t / 1e3 / PROFILED, c / PROFILED)
                      for n, (t, c) in sorted(by_name.items(),
                                              key=lambda kv: -kv[1][0])[:12]])
-    print(f"{out['frontend']} frontend B={B} T={T} bf16: unprofiled call "
+    print(f"{label}: unprofiled call "
           f"{call_ms:.2f} ms (median of "
           f"{', '.join(f'{t:.2f}' for t in calls_ms)}); device kernel time "
           f"{kernel_ms:.3f} ms per call (busy {100 * out['busy_share']:.1f}%); "
@@ -125,6 +122,20 @@ def profile_frontend(factorized: bool) -> dict:
     print("  largest kernels (ms per call, launches per call):")
     for name, ms, n in out["top_kernels"]:
         print(f"    {ms:8.3f} {n:6.0f}  {name}")
+    return out
+
+
+def profile_frontend(factorized: bool) -> dict:
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", factorized_frontend=factorized,
+                 **cs.FULL).derive(vocab)
+    B, T = 2, cfg.frames_per_action
+    batch = make_inputs(cfg, vocab, B, T, seed=0)
+    model = AG2VideoModel(cfg, vocab)
+    frontend = "factorized" if factorized else "dense"
+    out = profile_calls(lambda: generate(model, batch),
+                        f"{frontend} frontend B={B} T={T} bf16")
+    out["frontend"] = frontend
     return out
 
 
