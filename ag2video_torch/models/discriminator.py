@@ -107,9 +107,7 @@ class MultiscaleActionDiscriminator(nn.Module):
                  norm_D: str = "spectralinstance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if mlp_normalization != "none":
-            raise NotImplementedError(
-                "mlp_normalization is unused by the JAX package too")
+        # mlp_normalization: read and never used, as in the JAX package.
         if embedding_dim != gconv_dim:
             raise ValueError("the recurrent GCN carries its output as its "
                              "input: embedding_dim must equal gconv_dim")

@@ -1,12 +1,15 @@
 """Optical-flow generator (port of ag2video_tpu/models/flow.py).
 
 Encoder (one stride-1 + n_downsample_F stride-2 NormConvs) -> n_blocks_F
-residual blocks -> nearest-upsample decoder; heads: flow (2 ch, scaled by
-flow_multiplier, returned fp32) and weight (1 ch sigmoid, unused by the
-generator). The stride-2 convs pad flax-'SAME' style, (0, 1) on even sizes
-(layers.conv2d_nhwc). With skip_first, the stride-1 NormConv `down_0` does
-not exist: the caller applied the first conv and its leaky-relu (the
-factorized frontend's `flow_down_0`) and passes the (B, H, W, nff) result.
+residual blocks -> decoder; heads: flow (2 ch, scaled by flow_multiplier,
+returned fp32) and weight (1 ch sigmoid, unused by the generator). The
+stride-2 convs pad flax-'SAME' style, (0, 1) on even sizes
+(layers.conv2d_nhwc). The decoder's `up_{j}` is a nearest x2 upsample and a
+stride-1 NormConv, or with `flow_deconv` a stride-2 transposed NormConv
+(flax's ConvTranspose, layers.ConvTranspose). With skip_first, the
+stride-1 NormConv `down_0` does not exist: the caller applied the first
+conv and its leaky-relu (the factorized frontend's `flow_down_0`) and
+passes the (B, H, W, nff) result.
 """
 
 from __future__ import annotations
@@ -61,15 +64,11 @@ class FlowsGenerator(nn.Module):
                  nf_max: int = 1024, skip_first: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if flow_deconv:
-            raise NotImplementedError(
-                "flow_deconv (ConvTranspose decoder) is not ported yet "
-                "(ROADMAP)")
         nd = n_downsample_F
         ch = [min(nf_max, nff * (2 ** i)) for i in range(nd + 1)]
         self.nd, self.n_blocks = nd, n_blocks_F
         self.flow_multiplier = flow_multiplier
-        self.skip_first = skip_first
+        self.skip_first, self.flow_deconv = skip_first, flow_deconv
         if not skip_first:
             self.down_0 = NormConv(in_features, nff, norm_F, 3, dtype=dtype)
         for i in range(nd):
@@ -80,7 +79,9 @@ class FlowsGenerator(nn.Module):
             setattr(self, f"res_{i}", FlowResBlock(ch[nd], norm_F, dtype))
         for j, i in enumerate(reversed(range(nd))):
             setattr(self, f"up_{j}",
-                    NormConv(ch[i + 1], ch[i], norm_F, 3, dtype=dtype))
+                    NormConv(ch[i + 1], ch[i], norm_F, 3,
+                             stride=2 if flow_deconv else 1,
+                             transpose=flow_deconv, dtype=dtype))
         self.conv_flow = Conv(ch[0], 2, 3, dtype=dtype)
         self.conv_w = Conv(ch[0], 1, 3, dtype=dtype)
 
@@ -95,8 +96,9 @@ class FlowsGenerator(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(self, f"res_{i}")(x, train)
         for j in range(self.nd):
-            x = leaky_relu_02(getattr(self, f"up_{j}")(upsample_nearest(x),
-                                                      train))
+            if not self.flow_deconv:
+                x = upsample_nearest(x)
+            x = leaky_relu_02(getattr(self, f"up_{j}")(x, train))
         flow = self.conv_flow(x) * self.flow_multiplier
         weight = torch.sigmoid(self.conv_w(x))
         return weight, flow.float()

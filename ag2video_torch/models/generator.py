@@ -10,9 +10,17 @@ warped frame. Two modes share one `frame_step`:
   truth): every frame is conditionally independent, so (B, T - ncond) is
   folded into the batch and `frame_step` runs once, as the JAX package
   does (generator.py:268-280);
-* autoregressive (test-time generation): the JAX package's `nn.scan` over
-  frames is a Python loop over `frame_step`. Autoregressive *training*
-  (`bp_prev`) is not ported.
+* autoregressive (test-time generation, and training with `bp_prev`): the
+  JAX package's `nn.scan` over frames is a Python loop over `frame_step`,
+  each frame fed the frames generated before it. In train mode the JAX
+  scan carries `batch_stats` and `spectral` from frame to frame, which is
+  torch's per-forward semantics: every frame's forward updates the BN
+  running statistics and the spectral `u` / sigma in turn, and the
+  gradient flows back through the earlier generated frames. No norm
+  writes a buffer that a frame's graph saved for backward: the BNs
+  normalise by the batch statistics in train mode, and the spectral norms
+  save the new `u` they computed, not the buffer they copy it into. (The
+  JAX frame step is rematerialized; the port's is not.)
 
 * Factorized frontend (`factorized_frontend=True`, the default config): the
   per-object box coverage maps are computed once (`box_coverage`, cast to
@@ -158,10 +166,6 @@ class Layout2VidGenerator(nn.Module):
         """imgs_gt (B, T, H, W, 3), objs (B, O, A), obj_vecs (B, T, O, G),
         layout_boxes (B, T, O, 4) -> (imgs_pred (B, T, H, W, 3),
         flows (B, T, H, W, 2), confs (B, T, H, W, 1)), all fp32."""
-        if train and not teacher_forced:
-            raise NotImplementedError(
-                "autoregressive training (bp_prev) is not ported yet: "
-                "ROADMAP 'Modules not yet ported'")
         B, T, H, W, _ = imgs_gt.shape
         ncond = self.n_frames_G - 1
         if T <= ncond:
@@ -212,7 +216,7 @@ class Layout2VidGenerator(nn.Module):
                 else:
                     win = torch.cat([seg[:, t + i] for i in range(ncond + 1)],
                                     dim=-1)
-                prev, (img, flow, conf) = self.frame_step(prev, win)
+                prev, (img, flow, conf) = self.frame_step(prev, win, train)
                 imgs.append(img)
                 flows.append(flow)
                 confs.append(conf)

@@ -152,6 +152,77 @@ class Conv(nn.Module):
                            self.padding)
 
 
+def transpose_padding(k: int, stride: int) -> Tuple[int, int]:
+    """lax.conv_transpose's 'SAME' padding (low, high) of the dilated
+    input, for one spatial dim (jax `_conv_transpose_padding`); the output
+    is stride * the input size. For k=3, s=2 this is (2, 1)."""
+    pad_len = k + stride - 2
+    low = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    return low, pad_len - low
+
+
+def conv_transpose2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor], stride: int = 2,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """flax nn.ConvTranspose (transpose_kernel=False, 'SAME') of an
+    (..., H, W, C) tensor -> (..., stride*H, stride*W, O), computed in
+    `dtype` (flax promote_dtype rule).
+
+    flax dilates the input by `stride`, pads it (transpose_padding) and
+    cross-correlates it with its HWIO kernel as stored: it does not flip the
+    kernel. `F.conv_transpose2d` does flip, and takes (I, O, kh, kw): the
+    port's `weight` is the flax kernel flipped and in that layout (the
+    flip lives in weights.py), so one `F.conv_transpose2d` with no padding
+    computes flax's sums, shifted by k-1-low rows and columns and longer at
+    the high end; the crop takes flax's stride*H x stride*W window."""
+    dt = compute_dtype(x, dtype, weight, bias)
+    lead = x.shape[:-3]
+    H, W, C = x.shape[-3:]
+    k = weight.shape[-1]
+    low, high = transpose_padding(k, stride)
+    off = k - 1 - low
+    if off < 0 or off > k - stride:
+        raise ValueError(f"no crop of conv_transpose2d gives lax's 'SAME' "
+                         f"window for k={k}, stride={stride}")
+    xn = x.to(dt).reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    y = F.conv_transpose2d(xn, weight.to(dt),
+                           None if bias is None else bias.to(dt),
+                           stride=stride)
+    y = y[:, :, off:off + stride * H, off:off + stride * W]
+    y = y.permute(0, 2, 3, 1)
+    return y.reshape(*lead, *y.shape[1:])
+
+
+class ConvTranspose(nn.Module):
+    """flax nn.ConvTranspose with 'SAME' padding: weight (in, out, kh, kw),
+    the flax HWIO kernel flipped in both spatial axes (see
+    conv_transpose2d_nhwc), optional bias. The seeded init is flax's
+    lecun-normal, whose fan-in for the kernel (kh, kw, in, out) is
+    kh * kw * in."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 2, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(in_features, features, k, k))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.stride = stride
+        self.dtype = dtype
+
+    def init_(self, g: torch.Generator) -> None:
+        i, o, kh, kw = self.weight.shape
+        trunc_normal_(self.weight, math.sqrt(1.0 / (i * kh * kw)), g)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        w = self.weight if weight is None else weight
+        return conv_transpose2d_nhwc(x, w, self.bias, self.stride, self.dtype)
+
+
 class MLP(nn.Module):
     """build_mlp (reference models/layers.py:6-25): relu between layers,
     and a final relu unless `final_relu` is False (box_net)."""

@@ -78,9 +78,7 @@ class Acts2LayoutModel(nn.Module):
                  mlp_normalization: str = "none", only_temporal: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if mlp_normalization != "none":
-            raise NotImplementedError(
-                "mlp_normalization is unused by the JAX package too")
+        # mlp_normalization: read and never used, as in the JAX package.
         self.vocab = vocab
         self.gconv_dim = gconv_dim
         self.only_temporal = only_temporal

@@ -37,7 +37,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ag2video_torch.models.layers import Conv, conv2d_nhwc, resize_nearest
+from ag2video_torch.models.layers import (Conv, ConvTranspose, conv2d_nhwc,
+                                          resize_nearest)
 
 
 def parse_spade_norm(config_text: str):
@@ -190,14 +191,17 @@ class ParamFreeNorm(nn.Module):
 
 
 class SpectralWeight(nn.Module):
-    """flax SpectralNorm state for one OIHW kernel: buffers `u` (1, out) and
-    `sigma` (), and the normalised kernel (see the module docstring)."""
+    """flax SpectralNorm state for one OIHW kernel (or, `transposed`, one
+    ConvTranspose kernel: (in, out, kh, kw), flipped): buffers `u` (1, out)
+    and `sigma` (), and the normalised kernel (see the module docstring)."""
 
-    def __init__(self, features: int, eps: float = 1e-12):
+    def __init__(self, features: int, eps: float = 1e-12,
+                 transposed: bool = False):
         super().__init__()
         self.register_buffer("u", torch.zeros(1, features))
         self.register_buffer("sigma", torch.ones(()))
         self.eps = eps
+        self.transposed = transposed
         self._cache = None
 
     def init_(self, g: torch.Generator) -> None:
@@ -210,7 +214,10 @@ class SpectralWeight(nn.Module):
         return x * torch.rsqrt((x * x).sum() + self.eps)
 
     def _normalize(self, weight: torch.Tensor, update_stats: bool):
-        value = weight.float().permute(2, 3, 1, 0)
+        if self.transposed:  # back to the flax kernel (kh, kw, in, out)
+            value = weight.float().flip(2, 3).permute(2, 3, 0, 1)
+        else:
+            value = weight.float().permute(2, 3, 1, 0)
         value = value.reshape(-1, value.shape[-1])  # HWIO -> (-1, out)
         with torch.no_grad():
             vd = value.detach()
@@ -221,12 +228,16 @@ class SpectralWeight(nn.Module):
             with torch.no_grad():
                 self.u.copy_(u)
                 self.sigma.copy_(sigma.detach())
-        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        # In the promoted type of the kernel and sigma (fp32 for bf16
+        # params), as flax returns it.
+        return weight.to(sigma.dtype) / torch.where(sigma != 0, sigma,
+                                                    torch.ones_like(sigma))
 
     def normalize(self, weight: torch.Tensor,
                   update_stats: bool = False) -> torch.Tensor:
         """(out, in, kh, kw) kernel -> kernel / sigma, sigma from one power
-        iteration from `u` on the kernel viewed as (kh*kw*in, out); with
+        iteration from `u` on the kernel viewed as (kh*kw*in, out) (a
+        transposed kernel is viewed through its flax layout); with
         `update_stats`, the new `u` and sigma are stored."""
         if update_stats or (torch.is_grad_enabled() and weight.requires_grad):
             return self._normalize(weight, update_stats)
@@ -263,17 +274,28 @@ class NormConv(nn.Module):
     """get_nonspade_norm_layer: (spectral) conv, then an optional subnorm
     (BatchNorm or the instance norm, submodule `norm`). The conv has no bias
     when a subnorm follows. `padding` is 'SAME' or ((top, bottom), (left,
-    right)), as flax takes it."""
+    right)), as flax takes it. `transpose`: the conv is flax's
+    ConvTranspose ('SAME' only; layers.ConvTranspose), the flow net's
+    `flow_deconv` decoder."""
 
     def __init__(self, in_features: int, features: int, norm: str,
                  kernel_size: int = 3, stride: int = 1, padding="SAME",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 transpose: bool = False):
         super().__init__()
         spectral, subnorm, has_subnorm = split_norm(norm)
-        self.conv = Conv(in_features, features, kernel_size, stride,
-                         use_bias=not has_subnorm, dtype=dtype,
-                         padding=padding)
-        self.spectral = SpectralWeight(features) if spectral else None
+        if transpose:
+            if padding != "SAME":
+                raise ValueError("a transposed NormConv pads 'SAME' only")
+            self.conv = ConvTranspose(in_features, features, kernel_size,
+                                      stride, use_bias=not has_subnorm,
+                                      dtype=dtype)
+        else:
+            self.conv = Conv(in_features, features, kernel_size, stride,
+                             use_bias=not has_subnorm, dtype=dtype,
+                             padding=padding)
+        self.spectral = SpectralWeight(features, transposed=transpose) \
+            if spectral else None
         self.norm = subnorm_layer(subnorm, features, dtype) \
             if has_subnorm else None
 

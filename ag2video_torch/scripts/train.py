@@ -15,8 +15,12 @@ is a path, else from the newest `itr_*` under `--output_dir`.
 decoded from the videos) over shard `--cache_worker_id` of
 `--cache_workers` and returns without training.
 
-Not ported (ROADMAP.md): `--debug_nans` (a JAX flag), multi-host
-initialisation and the device mesh (data parallel comes later).
+Every training mode of the Config runs: teacher forcing or `--bp_prev 1`
+(the autoregressive loop), either flow decoder (`--flow_deconv`), fp32 or
+`--param_dtype bfloat16` parameters (fp32 masters in the Adams). Not here:
+`--debug_nans` (a JAX flag, not to port), and multi-host initialisation
+and the device mesh (`--mesh_model`; data parallel is ROADMAP.md's last
+bring-up item).
 """
 
 from __future__ import annotations

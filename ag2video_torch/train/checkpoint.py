@@ -11,14 +11,17 @@ writes orbax directories, which the card machine cannot read; here
     model, disc, vgg                                state dicts (vgg: None
                                                     without the VGG loss)
     opt_graph, opt_gen, opt_d                       {"state": the Adam's
-                                                    state dict, "count": its
-                                                    ScheduledAdam.count}
+                                                    state dict (with bf16
+                                                    params, its fp32 masters
+                                                    under "master"), "count":
+                                                    its ScheduledAdam.count}
 
 read back with `torch.load(weights_only=True)`. A LIGHT checkpoint holds
 LIGHT_FIELDS only (no optimizer states) and has an `itr_<t>.light` marker
 beside it; resuming from it restores the weights and counters and starts
 the three Adams afresh (moments and schedule count at 0), as the JAX light
-resume re-initialises the optax states.
+resume re-initialises the optax states; with bf16 params each master then
+starts from the restored weights.
 
 `save_checkpoint(block=False)` copies every tensor to host memory before it
 returns and leaves only the disk write to a background thread: torch's Adam

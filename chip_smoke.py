@@ -41,7 +41,9 @@ Phases, each printing one line (any failure raises and exits nonzero):
    the VGG loss on, seeded random weights): 2 warm-up and 5 timed
    iterations (`train_step` + `graph_step`): finite losses, no skipped
    step, exactly 2 rasterizer kernel launches and no plain call per
-   `train_step`, ms per iteration, training samples/s and peak memory;
+   `train_step`, ms per iteration, training samples/s, peak memory and the
+   device's busy share (the kernel time of one profiled iteration over the
+   timed iterations' mean);
 10. the training run at full width: `python -m ag2video_torch.scripts.train`
    (`main`) on the synthetic dataset at 256x256 with the Config defaults
    (phase 9's configuration on the synthetic vocabulary, the fidelity
@@ -90,7 +92,26 @@ Phases, each printing one line (any failure raises and exits nonzero):
    (use_gt) on phase 10's trainer, restored from the run's newest
    checkpoint, with an InceptionScore from the fabricated asset: a finite
    `inception_mean` / `inception_std`. The rasterizer is not on this path
-   (0 launches).
+   (0 launches);
+14. the training modes of the Config at full width: phase 9's
+   configuration three times, with `bp_prev` (the autoregressive loop in
+   train mode), with `flow_deconv` (the transposed-conv flow decoder) and
+   with `param_dtype="bfloat16"` (bf16 params, fp32 masters in the Adams):
+   2 warm-up and 3 timed iterations each: finite losses, no skipped step,
+   exactly 2 rasterizer kernel launches and no plain call per
+   `train_step`, the BN statistics moved (bp_prev), live == bf16(master)
+   bit for bit in all three Adams (bf16); ms per iteration, peak memory
+   and the device's busy share (one profiled iteration) beside phase 9's;
+   then one `train_step` at 64x64 in bf16 compute, with fp32 and with bf16
+   params, from the port's seeded weights, held to the JAX package's step
+   stored in torch_tools/data/reference_train_bf16_64.npz
+   (torch_tools/make_reference_npz.py);
+15. the last two CLIs: `scripts.train_backbone` into a temporary `--out`
+   (cut in scale: 1,000 videos, 400 steps, 128 held-out videos): the loss
+   falls, the held-out accuracies, the asset loads into the port's
+   `FidelityScore` on the card; `scripts.eval_iou` on phase 10's run
+   directory in its plain mode and both sweeps: every value finite; no
+   rasterizer call of either kind.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -112,10 +133,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch import nn
 
 from ag2video_torch import Config, get_vocab
-from ag2video_torch.flax_npz import COLLECTIONS
+from ag2video_torch.flax_npz import COLLECTIONS, unflatten_variables
 from ag2video_torch.data.png import read_png, write_png
+from ag2video_torch.eval.backbone import FidelityScore, load_backbone
 from ag2video_torch.data.transforms import clip_transform, denormalize
 from ag2video_torch.eval.inception import (InceptionScore, inception_v3,
                                            load_inception_params)
@@ -133,14 +156,18 @@ from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           boxes_to_layout_batch)
 from ag2video_torch.scripts.eval_fidelity import main as eval_fidelity_main
 from ag2video_torch.scripts.evaluate import _inception_pool3, _load_images
+from ag2video_torch.scripts.eval_iou import main as eval_iou_main
 from ag2video_torch.scripts.evaluate import main as evaluate_main
 from ag2video_torch.scripts.generate import main as generate_main
 from ag2video_torch.scripts.summarize_metrics import main as summarize_main
 from ag2video_torch.scripts.train import main as train_main
+from ag2video_torch.scripts.train_backbone import main as train_backbone_main
 from ag2video_torch.train import Trainer
 from ag2video_torch.train import checkpoint as ckpt_lib
+from ag2video_torch.train.state import reset_optimizers
 from ag2video_torch.utils.vis import save_video_pickle
-from ag2video_torch.weights import init_params
+from ag2video_torch.weights import (flax_to_state_dict, init_params,
+                                    transposed_keys)
 from torch_tools.cater_tree import make_tree
 from torch_tools.eval_assets import write_assets
 
@@ -205,6 +232,26 @@ OPTIONAL_PACKAGES = ("PIL", "pandas", "cv2", "imageio")
 SESSION_TOL = F32_TOL
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "torch_tools", "data", "reference_factorized_32.npz")
+# Phase 14: phase 9's configuration in each training mode of the Config.
+TRAIN_MODES = {"bp_prev": dict(bp_prev=True),
+               "flow_deconv": dict(flow_deconv=True),
+               "bf16_params": dict(param_dtype="bfloat16")}
+TRAIN_REFERENCE = os.path.join(os.path.dirname(REFERENCE),
+                               "reference_train_bf16_64.npz")
+# The port's bf16 step against the JAX package's (one train_step, bf16
+# compute, same weights and batch): both round every conv, norm and warp
+# to bf16, in other orders. Each loss within REF_LOSS_RTOL of max(|JAX
+# loss|, 1) (GAN_Img is a mean of logits near 0, so it is held absolutely),
+# the norm state within REF_STATE_REL_L2 relative L2. Measured on the CPU:
+# 2.7e-3 relative on the losses >= 1, 1.9e-3 absolute on GAN_Img, the
+# state 6.5e-3; the port's own bf16 step against its fp32-compute step
+# differs by 1.5e-2 / 1.1e-2.
+REF_LOSS_RTOL = 1e-2
+REF_STATE_REL_L2 = 3e-2
+# Phase 15: scripts.train_backbone cut in scale (its defaults: 4,000
+# videos, 2,000 steps, 256 held-out videos).
+BACKBONE_ARGS = ["--n_videos", "1000", "--steps", "400",
+                 "--n_val_videos", "128"]
 
 
 def check_close(name, got, ref, tol):
@@ -670,18 +717,31 @@ def phase_small_trainer():
           f"{PARAM_ATOL:.0e}): " + "; ".join(out))
 
 
-def phase_train_full():
-    vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", **TRAIN_FULL).derive(vocab)
-    B, T = cfg.batch_size, cfg.frames_per_action
-    Tg = 4 * cfg.frames_per_action_graph
-    batch = make_inputs(cfg, vocab, B, T, seed=0)
-    graph = make_inputs(cfg, vocab, B, Tg, seed=1)
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg, vocab)
-    trainer.init(batch)
-    setup_s = time.perf_counter() - t0
+def kernel_ms(fn):
+    """Device kernel time (ms) of one call of `fn`, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue  # a host range drawn on the device timeline
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "device_time_total", None)
+            us += float(t if t is not None else e.cuda_time_total)
+    return us / 1e3
+
+
+def train_iterations(trainer, batch, graph, runs):
+    """2 warm-up and `runs` timed iterations (`train_step` + `graph_step`),
+    the rasterizer counts read over the timed ones, then one profiled
+    iteration -> {ms, peak, busy, per_step, last}. Raises on a non-finite
+    loss, a skipped step, or other than 2 kernel launches and 0 plain
+    calls per train_step."""
     def iteration():
         m = trainer.train_step(batch)
         m.update(trainer.graph_step(graph))
@@ -693,7 +753,7 @@ def phase_train_full():
     torch.cuda.reset_peak_memory_stats()
     KERNEL_LAUNCHES.reset()
     PLAIN_CALLS.reset()
-    runs, metrics = 5, []
+    metrics = []
     t0 = time.perf_counter()
     for _ in range(runs):
         metrics.append(iteration())
@@ -701,7 +761,6 @@ def phase_train_full():
     dt = (time.perf_counter() - t0) / runs
     launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
     peak = torch.cuda.max_memory_allocated()
-    last = {k: float(v) for k, v in metrics[-1].items()}
     bad = [k for m in metrics for k, v in m.items()
            if not np.isfinite(float(v))]
     if bad or trainer.skipped_nan != 0:
@@ -710,15 +769,252 @@ def phase_train_full():
     if launches != 2 * runs or plain != 0:
         raise AssertionError(f"{launches} rasterizer kernel launches and "
                              f"{plain} plain calls in {runs} train_steps")
+    busy = kernel_ms(iteration) / (1e3 * dt)
+    return dict(ms=1e3 * dt, peak=peak, busy=busy, per_step=launches // runs,
+                last={k: float(v) for k, v in metrics[-1].items()})
+
+
+def train_full(**kw):
+    """Phase 9's trainer (the Config defaults at CATER-256x256, bf16
+    compute, with `kw`) and its batches -> (trainer, batch, graph, setup
+    seconds)."""
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **TRAIN_FULL, **kw).derive(vocab)
+    B, T = cfg.batch_size, cfg.frames_per_action
+    batch = make_inputs(cfg, vocab, B, T, seed=0)
+    graph = make_inputs(cfg, vocab, B, 4 * cfg.frames_per_action_graph,
+                        seed=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, vocab)
+    trainer.init(batch)
+    return trainer, batch, graph, time.perf_counter() - t0
+
+
+def phase_train_full():
+    trainer, batch, graph, setup_s = train_full()
+    cfg = trainer.cfg
+    B, T = cfg.batch_size, cfg.frames_per_action
+    runs = 5
+    res = train_iterations(trainer, batch, graph, runs)
     print(f"phase 9 CATER 256x256 training, default config B={B} T={T} "
-          f"(graph T={Tg}) bf16, VGG and feature matching on: "
-          f"{1e3 * dt:.1f} ms per iteration (train_step + graph_step, mean "
-          f"of {runs} after 2 warm-ups), {B / dt:.3f} training samples/s; "
-          f"rasterizer kernel launches {launches // runs} per train_step, "
-          f"plain calls {plain}; skipped steps 0; peak memory "
-          f"{peak / 2**30:.2f} GiB; setup {setup_s:.1f} s; last losses " +
-          ", ".join(f"{k} {v:.4f}" for k, v in sorted(last.items())))
-    return launches // runs, 1e3 * dt
+          f"(graph T={4 * cfg.frames_per_action_graph}) bf16, VGG and "
+          f"feature matching on: {res['ms']:.1f} ms per iteration "
+          f"(train_step + graph_step, mean of {runs} after 2 warm-ups), "
+          f"{B / res['ms'] * 1e3:.3f} training samples/s; device busy "
+          f"{100 * res['busy']:.1f}% (one profiled iteration); rasterizer "
+          f"kernel launches {res['per_step']} per train_step, plain calls "
+          f"0; skipped steps 0; peak memory {res['peak'] / 2**30:.2f} GiB; "
+          f"setup {setup_s:.1f} s; last losses " +
+          ", ".join(f"{k} {v:.4f}" for k, v in sorted(res["last"].items())))
+    return res
+
+
+def running_stats(module):
+    return {k: v.clone() for k, v in module.named_buffers()
+            if k.endswith("running_mean") or k.endswith("running_var")}
+
+
+def numpy_weights(module, seed):
+    """Overwrite the tensors of `module` that its seeded init draws at
+    random with numpy draws from `seed`, in state_dict order: each spectral
+    `u` N(0, 1), each parameter of rank >= 2 N(0, 1 / (numel / shape[0]));
+    the rest (biases, norm scales, running statistics, sigma) keeps its
+    init value. torch's generator may draw other numbers under another
+    torch version; these are the same on every machine."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for k, t in module.state_dict(keep_vars=True).items():
+            if k.rsplit(".", 1)[-1] == "u":
+                std = 1.0
+            elif isinstance(t, nn.Parameter) and t.dim() >= 2:
+                std = (t.shape[0] / t.numel()) ** 0.5
+            else:
+                continue
+            t.copy_(torch.from_numpy(
+                (rng.standard_normal(tuple(t.shape)) * std).astype(
+                    np.float32)))
+
+
+def reference_trainer(cfg, vocab, device):
+    """The trainer of the training reference file: seeded, its weights
+    from `numpy_weights` (the model from cfg.seed, D from cfg.seed + 1),
+    its Adams (and fp32 masters) rebuilt over them."""
+    trainer = Trainer(cfg, vocab, device=device)
+    trainer.init()
+    numpy_weights(trainer.state.model, cfg.seed)
+    numpy_weights(trainer.state.disc, cfg.seed + 1)
+    reset_optimizers(trainer.state, cfg)
+    return trainer
+
+
+def hold_train_reference(device):
+    """One `train_step` of the port on `device` at the reference file's
+    configuration (reference_trainer), per param dtype, against the JAX
+    package's step stored there -> {dtype: (worst loss error over
+    max(|loss|, 1), norm state rel-L2)}; raises past REF_LOSS_RTOL /
+    REF_STATE_REL_L2."""
+    with np.load(TRAIN_REFERENCE) as z:
+        ref = {k: z[k] for k in z.files}
+    base = json.loads(str(ref["config"]))
+    vocab = get_vocab(base["dataset"])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config.from_dict(dict(base, param_dtype=dtype))
+        batch = make_inputs(cfg, vocab, cfg.batch_size,
+                            cfg.frames_per_action, seed=0)
+        trainer = reference_trainer(cfg, vocab, device)
+        got = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        loss_rel = 0.0
+        for k, v in got.items():
+            want = float(ref[f"{dtype}/losses/{k}"])
+            if not np.isfinite(v):
+                raise AssertionError(f"{dtype} params: {k} {v}")
+            loss_rel = max(loss_rel, abs(v - want) / max(abs(want), 1.0))
+        num = den = 0.0
+        for part, module in (("model_state", trainer.state.model),
+                             ("d_state", trainer.state.disc)):
+            prefix = f"{dtype}/{part}/"
+            want = flax_to_state_dict(unflatten_variables(
+                {k[len(prefix):]: v for k, v in ref.items()
+                 if k.startswith(prefix)}), transposed_keys(module))
+            state = module.state_dict()
+            for k, w in want.items():
+                num += float(((state[k].float().cpu() - w) ** 2).sum())
+                den += float((w ** 2).sum())
+        state_rel = (num / den) ** 0.5
+        if loss_rel > REF_LOSS_RTOL or state_rel > REF_STATE_REL_L2:
+            raise AssertionError(
+                f"{dtype} params vs the JAX step: losses {loss_rel:.3e} "
+                f"(bound {REF_LOSS_RTOL}), norm state rel-L2 "
+                f"{state_rel:.3e} (bound {REF_STATE_REL_L2})")
+        out[dtype] = (loss_rel, state_rel)
+    return out
+
+
+def phase_modes(phase9):
+    """Phase 14: phase 9's configuration in each training mode, beside
+    phase 9's numbers from this run -> {mode: launches per train_step}."""
+    t_phase = time.perf_counter()
+    runs, per_step = 3, {}
+    print(f"phase 14 training modes at phase 9's configuration ({runs} "
+          f"timed iterations after 2 warm-ups each; phase 9 in this run: "
+          f"{phase9['ms']:.1f} ms per iteration, peak "
+          f"{phase9['peak'] / 2**30:.2f} GiB, busy "
+          f"{100 * phase9['busy']:.1f}%):", flush=True)
+    for name, kw in TRAIN_MODES.items():
+        trainer, batch, graph, setup_s = train_full(**kw)
+        st, B = trainer.state, trainer.cfg.batch_size
+        if name == "flow_deconv" and not transposed_keys(st.model):
+            raise AssertionError("flow_deconv built no transposed conv")
+        stats0 = running_stats(st.model)
+        res = train_iterations(trainer, batch, graph, runs)
+        extra = ""
+        if name == "bp_prev":
+            stats1 = running_stats(st.model)
+            moved = sum(not torch.equal(v, stats1[k])
+                        for k, v in stats0.items())
+            if not moved:
+                raise AssertionError("bp_prev: no BN statistic moved")
+            extra = f", {moved} of {len(stats0)} BN statistics moved"
+        if name == "bf16_params":
+            if any(p.dtype != torch.bfloat16 for m in (st.model, st.disc)
+                   for p in m.parameters()):
+                raise AssertionError("a parameter is not bf16")
+            n = 0
+            for opt in (st.opt_graph, st.opt_gen, st.opt_d):
+                for p, m in zip(opt.live, opt.masters):
+                    if not torch.equal(p, m.to(torch.bfloat16)):
+                        raise AssertionError("live != bf16(master)")
+                    n += 1
+            extra = f", live == bf16(master) in all {n} parameters"
+        per_step[name] = res["per_step"]
+        print(f"phase 14 {name}: {res['ms']:.1f} ms per iteration, "
+              f"{B / res['ms'] * 1e3:.3f} training samples/s, peak "
+              f"{res['peak'] / 2**30:.2f} GiB, busy "
+              f"{100 * res['busy']:.1f}%, {res['per_step']} kernel launches"
+              f" per train_step, 0 plain calls, skipped steps 0, setup "
+              f"{setup_s:.1f} s, G/total_loss "
+              f"{res['last']['G/total_loss']:.4f}{extra}", flush=True)
+        del trainer, st
+        torch.cuda.empty_cache()
+    ref = hold_train_reference("cuda")
+    print("phase 14 against the JAX package's bf16 step (64x64, "
+          "reference_train_bf16_64.npz): " + ", ".join(
+              f"{d} params losses {a:.2e}, norm state {b:.2e} rel-L2"
+              for d, (a, b) in ref.items())
+          + f" (bounds {REF_LOSS_RTOL}, {REF_STATE_REL_L2}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return per_step
+
+
+def finite_tree(where, node):
+    """Raise unless every number in the nested dict / list is finite."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            finite_tree(f"{where}/{k}", v)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            finite_tree(f"{where}[{i}]", v)
+    elif isinstance(node, (int, float)) and not np.isfinite(node):
+        raise AssertionError(f"{where}: {node}")
+
+
+def phase_backbone_iou(run_dir, tmp):
+    """Phase 15: scripts.train_backbone and scripts.eval_iou (all three
+    modes, on phase 10's run directory)."""
+    t_phase = time.perf_counter()
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    out = os.path.join(tmp, "backbone.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        result = train_backbone_main(BACKBONE_ARGS + ["--out", out])
+    bb_s = time.perf_counter() - t0
+    if json.loads(buf.getvalue().strip().splitlines()[-1]) != \
+            json.loads(json.dumps(result)):
+        raise AssertionError("train_backbone printed another result")
+    params, meta = load_backbone(out)
+    hist = meta["history"]
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"backbone loss {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}")
+    score = FidelityScore(params)  # the card
+    g = torch.Generator().manual_seed(0)
+    score.add_fake(torch.randn(8, 256, 256, 3, generator=g).cuda(),
+                   presence=np.zeros((8, 18), np.float32))
+    score.add_real(torch.randn(8, 256, 256, 3, generator=g).cuda())
+    finite_tree("FidelityScore", score.compute())
+    iou, iou_s = {}, {}
+    for sweep in (None, "composition", "horizon"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            iou[sweep] = eval_iou_main(["--checkpoint", run_dir] + (
+                ["--sweep", sweep] if sweep else []))
+        iou_s[sweep] = time.perf_counter() - t0
+        finite_tree(f"eval_iou {sweep}", iou[sweep])
+    if KERNEL_LAUNCHES.n or PLAIN_CALLS.n:
+        raise AssertionError(f"{KERNEL_LAUNCHES.n} kernel launches, "
+                             f"{PLAIN_CALLS.n} plain calls")
+    plain, comp, hor = iou[None], iou["composition"], iou["horizon"]
+    print(f"phase 15 train_backbone ({' '.join(BACKBONE_ARGS)}; "
+          f"{bb_s:.1f} s): loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}, held-out 128->64 presence "
+          f"{result['acc_direct64']['presence_acc']:.4f} grid "
+          f"{result['acc_direct64']['grid_acc']:.4f}, 256->64 presence "
+          f"{result['acc_runres_resize64']['presence_acc']:.4f} grid "
+          f"{result['acc_runres_resize64']['grid_acc']:.4f}, loaded by "
+          f"FidelityScore on the card; eval_iou on phase 10's run "
+          f"({plain['n_videos']} videos): model avg_iou "
+          f"{plain['model']['avg_iou']:.4f}, rule "
+          f"{plain['rule']['avg_iou']:.4f} ({iou_s[None]:.1f} s); "
+          f"composition original/model_vs_expected "
+          f"{comp['original/model_vs_expected']['avg_iou']:.4f}, "
+          f"rule_vs_gt {comp['original/rule_vs_gt']['avg_iou']:.4f} "
+          f"({iou_s['composition']:.1f} s); horizon hold_4x "
+          f"{hor['hold_4x']['avg_iou']:.4f}, slowmo_4x "
+          f"{hor['slowmo_4x']['avg_iou']:.4f} ({iou_s['horizon']:.1f} s); "
+          f"all finite; rasterizer launches 0, plain calls 0; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 @contextlib.contextmanager
@@ -1408,13 +1704,15 @@ def main():
     phase_factorized()
     phase_full(factorized=True)
     phase_small_trainer()
-    per_train_step, phase9_ms = phase_train_full()
+    phase9 = phase_train_full()
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
-        fit = phase_fit(phase9_ms, run_dir)
+        fit = phase_fit(phase9["ms"], run_dir)
         per_train_step_cater = phase_cater(tmp, fit)
         phase_clis(run_dir, tmp, found["imageio"])
         phase_eval(run_dir, tmp)
+        modes = phase_modes(phase9)
+        phase_backbone_iou(run_dir, tmp)
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -1424,9 +1722,10 @@ def main():
         "launches": launches,
     }, **timing["c"],
         library="torch.bmm(coverage (N, H*W, O) bf16, vecs (N, O, D) bf16)",
-        launches_per_train_step=per_train_step,
+        launches_per_train_step=phase9["per_step"],
         launches_per_train_step_fit=fit["launches"],
         launches_per_train_step_cater=per_train_step_cater,
+        **{f"launches_per_train_step_{k}": v for k, v in modes.items()},
         disc_shape="N=9 O=12 D=256 256x256 bf16",
         **{f"disc_{k}": v for k, v in disc.items()})]}))
     print(json.dumps({"ok": True, "device": {

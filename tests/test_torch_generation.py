@@ -24,9 +24,7 @@ from ag2video_tpu.models.normalization import SNConv as JSNConv
 from ag2video_tpu.vocab import get_vocab
 from ag2video_torch.inference import generate, make_inputs
 from ag2video_torch.models import AG2VideoModel
-from ag2video_torch.models.generator import Layout2VidGenerator
 from ag2video_torch.models.normalization import NormConv, SNConv
-from ag2video_torch.train import Trainer
 from ag2video_torch.weights import flax_to_state_dict, from_flax
 
 torch.set_num_threads(2)
@@ -198,25 +196,3 @@ def test_snconv_matches(rng, k, use_bias):
     assert not torch.allclose(tm.spectral.normalize(w),
                               w / torch.linalg.matrix_norm(
                                   w.reshape(6, -1), ord=2))
-
-
-def test_unported_modes_raise():
-    """Autoregressive training (bp_prev), the ConvTranspose flow decoder
-    (flow_deconv) and bf16 params with an fp32 master raise with a ROADMAP
-    pointer. Teacher forcing and train mode are ported
-    (tests/test_torch_train.py)."""
-    vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", bp_prev=True, **SMALL).derive(vocab)
-    batch = make_inputs(cfg, vocab, 1, 2, seed=0)
-    model = AG2VideoModel(cfg, vocab, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(*(torch.as_tensor(batch[k]) for k in KEYS), test_mode=False,
-              use_gt=True, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Layout2VidGenerator(vocab, gconv_dim=16, semantic_nc=16, ngf=4,
-                            nff=4, n_blocks_F=1, n_downsample_F=2,
-                            flow_deconv=True)
-    trainer = Trainer(cfg.replace(bp_prev=False, param_dtype="bfloat16"),
-                      vocab, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.init()

@@ -61,8 +61,9 @@ def test_port_imports_without_jax():
     # every module of the package, not just the root: the training step's
     # losses, discriminator, vgg and train modules, the training run's
     # data, evaluation, checkpoint, telemetry and CLI modules, and the
-    # evaluation stack's networks, metrics and CLIs among them
-    assert n >= 65
+    # evaluation stack's networks, metrics and CLIs, the rule baseline and
+    # the backbone-training and layout-IoU CLIs among them
+    assert n >= 68
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
                  "train.trainer", "train.checkpoint", "data.synthetic",
                  "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
@@ -73,7 +74,8 @@ def test_port_imports_without_jax():
                  "scripts.summarize_metrics", "eval.layers", "eval.inception",
                  "eval.lpips", "eval.video_backbones", "eval.video_score",
                  "eval.prd", "eval.action_metrics", "scripts.evaluate",
-                 "scripts.port_torch_weights"):
+                 "scripts.port_torch_weights", "models.rule_baseline",
+                 "scripts.train_backbone", "scripts.eval_iou"):
         assert f"ag2video_torch.{name}" in proc.stdout
 
 

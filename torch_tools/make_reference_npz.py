@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Write torch_tools/data/reference_factorized_32.npz: the JAX package's own
-outputs for a small default-config model, so the port can be held to them
-on the card, where JAX does not run.
+"""Write the JAX package's own outputs for small configurations, so the port
+can be held to them on the card, where JAX does not run.
 
-    python3 torch_tools/make_reference_npz.py     # where JAX runs, on the CPU
+    python3 torch_tools/make_reference_npz.py [generation] [train]
+                                              # where JAX runs, on the CPU
 
+With no argument it writes both files.
+
+torch_tools/data/reference_factorized_32.npz (`generation`):
 The model is the default configuration (factorized frontend) cut to 32x32
 and narrow widths (REF_CONFIG), in fp32. Its variables are initialised by
 the JAX package, then every leaf that init leaves at a constant (BN
@@ -20,6 +23,26 @@ model then runs on exactly the stored values. The file holds:
 
 tests/test_torch_factorized.py re-runs the JAX model on the stored file, so
 a file that no longer matches the JAX package fails there.
+
+torch_tools/data/reference_train_bf16_64.npz (`train`): one JAX
+`Trainer.train_step` on the CPU at tests/test_train.py::tiny_config's
+widths at 64x64 with bf16 compute (TRAIN_CONFIG), once with fp32 params
+and once with `param_dtype="bfloat16"`. The weights are the port's own
+numpy-drawn ones (`chip_smoke.reference_trainer`: the same on every
+machine, where torch's seeded init may differ between torch versions),
+carried into the JAX TrainState by `weights.to_flax` and bf16-cast by the
+JAX package's own rule for bf16 params, so the file stores no weights: the
+port rebuilds them from the config's seed. The batch is `make_inputs(cfg, vocab,
+batch_size, frames_per_action, seed=TRAIN_INPUT_SEED)`. The file holds:
+
+  config                    the Config fields (JSON), param_dtype float32
+  <dtype>/losses/<name>     the step's G and D metrics
+  <dtype>/model_state/..., <dtype>/d_state/...
+                            the norm state after the step (flax_npz.py
+                            keys: batch_stats/..., spectral/...)
+
+for <dtype> in float32, bfloat16. chip_smoke.py phase 14 holds the card's
+step to it.
 """
 
 from __future__ import annotations
@@ -44,6 +67,20 @@ from ag2video_torch.inference import make_inputs  # noqa: E402
 
 PATH = os.path.join(ROOT, "torch_tools", "data",
                     "reference_factorized_32.npz")
+TRAIN_PATH = os.path.join(ROOT, "torch_tools", "data",
+                          "reference_train_bf16_64.npz")
+# tests/test_train.py::tiny_config at 64x64, bf16 compute.
+TRAIN_CONFIG = dict(dataset="synthetic", image_size=(64, 64), batch_size=2,
+                    frames_per_action=2, frames_per_action_graph=1,
+                    embedding_dim=16, gconv_dim=16, gconv_hidden_dim=32,
+                    gconv_num_layers=2, ngf=4, nff=4, n_blocks_F=1,
+                    n_downsample_F=2, num_D=2, n_layers_D=2, dataset_size=16,
+                    number_of_objects=3, max_objects=5, max_triplets=6,
+                    max_actions=2, learning_rate=1e-3,
+                    compute_dtype="bfloat16", no_vgg_loss=True,
+                    output_dir="")
+TRAIN_INPUT_SEED = 0
+PARAM_DTYPES = ("float32", "bfloat16")
 REF_CONFIG = dict(dataset="cater", image_size=(32, 32), frames_per_action=3,
                   max_objects=5, max_triplets=6, max_actions=2,
                   embedding_dim=4, gconv_dim=8, gconv_hidden_dim=16,
@@ -96,7 +133,66 @@ def apply(model, variables, inputs):
     return {k: np.asarray(out[k], np.float32) for k in OUTPUTS}
 
 
-def main() -> int:
+def train_reference(param_dtype: str):
+    """One JAX train_step from the reference trainer's weights -> ({metric:
+    float}, flat model_state, flat d_state)."""
+
+    from ag2video_tpu.data.collate import Batch
+    from ag2video_tpu.train.state import make_optimizers
+    from ag2video_tpu.train.trainer import Trainer as JTrainer
+    from ag2video_torch.config import Config as TConfig
+    from ag2video_torch.weights import to_flax, transposed_keys
+    from chip_smoke import reference_trainer
+
+    vocab = get_vocab("synthetic")
+    cfg = Config(param_dtype=param_dtype, **TRAIN_CONFIG).derive(vocab)
+    inputs = make_inputs(cfg, vocab, cfg.batch_size, cfg.frames_per_action,
+                         seed=TRAIN_INPUT_SEED)
+    batch = Batch(video_ids=[], **inputs)
+    jt = JTrainer(cfg, vocab)
+    jt.init(batch)
+    st = jax.device_get(jt.state)
+    port = reference_trainer(TConfig.from_dict(cfg.to_dict()), vocab, "cpu")
+
+    def carried(template, module):
+        return to_flax(template, module.state_dict(), transposed_keys(module))
+
+    m = carried({"params": st.params, **st.model_state}, port.state.model)
+    d = carried({"params": st.d_params, **st.d_state}, port.state.disc)
+    cast = lambda t, like: jax.tree.map(
+        lambda a, b: jnp.asarray(a, jnp.asarray(b).dtype), t, like)
+    params, d_params = cast(m.pop("params"), st.params), \
+        cast(d.pop("params"), st.d_params)
+    og, oe, od = make_optimizers(cfg, params)
+    jt.state = jt.state.replace(
+        params=params, model_state=m, d_params=d_params, d_state=d,
+        opt_graph_state=og.init(params), opt_gen_state=oe.init(params),
+        opt_d_state=od.init(d_params))
+    metrics = {k: float(v) for k, v in jt.train_step(batch).items()}
+    after = jax.device_get(jt.state)
+    return (metrics, flatten_variables(after.model_state),
+            flatten_variables(after.d_state))
+
+
+def write_train_reference() -> None:
+    vocab = get_vocab("synthetic")
+    cfg = Config(**TRAIN_CONFIG).derive(vocab)
+    arrays = {"config": np.array(json.dumps(cfg.to_dict()))}
+    for dtype in PARAM_DTYPES:
+        metrics, m_state, d_state = train_reference(dtype)
+        arrays.update({f"{dtype}/losses/{k}": np.float32(v)
+                       for k, v in metrics.items()})
+        arrays.update({f"{dtype}/model_state/{k}": v
+                       for k, v in m_state.items()})
+        arrays.update({f"{dtype}/d_state/{k}": v for k, v in d_state.items()})
+        print(f"{dtype} params: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(metrics.items())))
+    os.makedirs(os.path.dirname(TRAIN_PATH), exist_ok=True)
+    np.savez_compressed(TRAIN_PATH, **arrays)
+    print(f"{TRAIN_PATH}: {os.path.getsize(TRAIN_PATH)} bytes")
+
+
+def write_generation_reference() -> None:
     model, cfg, vocab = model_and_config()
     inputs = make_inputs(cfg, vocab, 2, cfg.frames_per_action, seed=0)
     args = tuple(jnp.asarray(inputs[k]) for k in INPUTS)
@@ -115,6 +211,15 @@ def main() -> int:
     print(f"{PATH}: {os.path.getsize(PATH)} bytes, "
           f"{sum(k.split('/')[0] in ('params', 'batch_stats', 'spectral') for k in arrays)} "
           f"variables")
+
+
+def main(argv=None) -> int:
+    which = (sys.argv[1:] if argv is None else argv) or ["generation",
+                                                         "train"]
+    writers = {"generation": write_generation_reference,
+               "train": write_train_reference}
+    for name in which:
+        writers[name]()
     return 0
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a full-width training iteration spends its device time.
 
-    python3 torch_tools/profile_train.py
+    python3 torch_tools/profile_train.py [bp_prev | flow_deconv | bf16_params]
 
-Builds chip_smoke.py phase 9's trainer (the JAX package's Config defaults
+Builds chip_smoke.py phase 9's trainer (or, given a mode, phase 14's in
+that training mode of chip_smoke.TRAIN_MODES) (the JAX package's Config defaults
 at CATER-256x256: B=3 clips of 4 frames, graph clips of 16, factorized
 frontend, bf16, VGG and feature matching on, seeded random weights), runs 2
 warm-up iterations (`train_step` + `graph_step`), times 5 unprofiled ones,
@@ -56,14 +57,18 @@ def _is_raster_backward(e) -> bool:
                                or name not in e.cpu_parent.name)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", **cs.TRAIN_FULL).derive(vocab)
+    mode = (sys.argv[1:] if argv is None else argv) or ["default"]
+    mode = mode[0]
+    cfg = Config(dataset="cater", **cs.TRAIN_FULL,
+                 **({} if mode == "default" else cs.TRAIN_MODES[mode])
+                 ).derive(vocab)
     B, T = cfg.batch_size, cfg.frames_per_action
     batch = make_inputs(cfg, vocab, B, T, seed=0)
     graph = make_inputs(cfg, vocab, B, 4 * cfg.frames_per_action_graph,
@@ -109,8 +114,8 @@ def main() -> int:
             raster_bwd_us += _kernel_us_under(e)
     kernel_ms = sum(by_cat.values()) / 1e3 / PROFILED
     out = dict(
-        config="CATER 256x256 default, B=%d T=%d, graph T=%d, bf16" % (
-            B, T, 4 * cfg.frames_per_action_graph),
+        config="CATER 256x256 %s, B=%d T=%d, graph T=%d, bf16" % (
+            mode, B, T, 4 * cfg.frames_per_action_graph),
         unprofiled_iteration_ms=iter_ms, unprofiled_iterations_ms=iters_ms,
         kernel_ms_per_iteration=kernel_ms, busy_share=kernel_ms / iter_ms,
         kernels_per_iteration=kernels / PROFILED,
