@@ -1,7 +1,8 @@
 """Attribute embeddings (port of ag2video_tpu/models/embeddings.py).
 
 One table per attribute family, concatenated, then a shared FC
-(`attribute_fc_gen`) when there is more than one family.
+(`attribute_fc_gen`) when there is more than one family or when
+`use_attr_fc_gen` forces it.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ class AttributeEmbeddings(nn.Module):
     """
 
     def __init__(self, cardinalities: Dict[str, int], embedding_dim: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 use_attr_fc_gen: bool = False):
         super().__init__()
         families = list(cardinalities)
         self.n_families = len(families)
@@ -31,7 +33,7 @@ class AttributeEmbeddings(nn.Module):
         width = len(families) * embedding_dim
         self.attribute_fc_gen = (
             Dense(width, width, dtype=dtype)
-            if len(families) > 1 else None)
+            if len(families) > 1 or use_attr_fc_gen else None)
 
     def forward(self, objs: torch.Tensor) -> torch.Tensor:
         if objs.shape[-1] != self.n_families:

@@ -66,10 +66,12 @@ class Dense(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = compute_dtype(x, self.dtype, self.weight, self.bias)
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        w = self.weight if weight is None else weight
+        dt = compute_dtype(x, self.dtype, w, self.bias)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return F.linear(x.to(dt), w.to(dt), b)
 
 
 class Embed(nn.Module):
@@ -271,9 +273,161 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
     """F.avg_pool2d(k=3, s=2, p=1, count_include_pad=False) of (..., H, W,
-    C): the multiscale discriminator's downsample."""
+    C): the multiscale discriminator's downsample.
+
+    The pool runs on a contiguous NCHW copy: on CUDA (PyTorch 2.11),
+    avg_pool2d's backward at this window on a channels_last input returns
+    a wrong input gradient (rel-L2 ~1 against the CPU; the forward is
+    right), and this gradient reaches the generator through the
+    discriminator's second scale."""
     lead = x.shape[:-3]
     H, W, C = x.shape[-3:]
-    y = F.avg_pool2d(x.reshape(-1, H, W, C).permute(0, 3, 1, 2), 3, 2, 1,
-                     count_include_pad=False).permute(0, 2, 3, 1)
+    xn = x.reshape(-1, H, W, C).permute(0, 3, 1, 2).contiguous()
+    y = F.avg_pool2d(xn, 3, 2, 1, count_include_pad=False).permute(0, 2, 3, 1)
     return y.reshape(*lead, *y.shape[1:])
+
+
+def get_activation(name: Optional[str]):
+    """Activation by name, 'leakyrelu-<slope>' included (reference
+    layers.py:115)."""
+    if name is None:
+        return lambda x: x
+    low = name.lower()
+    if low.startswith("leakyrelu"):
+        slope = float(low.split("-")[1]) if "-" in low else 0.01
+        return lambda x: F.leaky_relu(x, negative_slope=slope)
+    table = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+             "tanh": torch.tanh, "none": lambda x: x}
+    if low not in table:
+        raise ValueError(f"Invalid activation {name!r}")
+    return table[low]
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) -> (..., C) (reference layers.py:184-187)."""
+    return x.mean(dim=(-3, -2))
+
+
+def _norm2d(kind: str, features: int) -> Optional[nn.Module]:
+    """SpecCNN's norm: None, flax's BatchNorm (momentum 0.99, eps 1e-5) or
+    the instance norm (flax GroupNorm with a group per channel, no scale or
+    bias, eps 1e-6)."""
+    from ag2video_torch.models.normalization import BatchNorm, GroupNorm
+
+    if kind == "none":
+        return None
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind == "instance":
+        return GroupNorm(None, eps=1e-6)
+    raise ValueError(f"Unrecognized normalization {kind!r}")
+
+
+class SpecCNN(nn.Module):
+    """String-spec CNN (reference models/layers.py:28-112), channels-last.
+
+    The grammar of the crop discriminators ('C4-64-2,C4-128-2,C4-256-2'):
+    `IX` (X input channels, first only; 3 without it), `CK-X[-S]` (a KxK
+    conv to X channels at stride S; every conv but the first is preceded by
+    the norm and the activation), `R` (a residual block of two 3x3 convs,
+    each after norm and activation; no norm when it comes first), `UX`
+    (nearest upsample by X), `PX` (an X-by-X pool, stride X, 'VALID'), and
+    `FC-Din-Dout` (flatten in NHWC order, Dense, then the activation unless
+    it is the last layer). Submodules carry flax's names: `conv_{i}`,
+    `norm_{i}`, `res_{i}_{c0,c1,n0,n1}`, `fc_{i}` for the i-th spec.
+    """
+
+    def __init__(self, arch: str, normalization: str = "batch",
+                 activation: str = "relu", padding: str = "same",
+                 pooling: str = "max", dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.specs, cur_c = self.parse(arch)
+        self.act = get_activation(activation)
+        if pooling not in ("max", "avg"):
+            raise ValueError(f"Unrecognized pooling {pooling!r}")
+        self.pooling = pooling
+        pad = "SAME" if padding == "same" else ((0, 0), (0, 0))
+        first_conv = True
+        for i, s in enumerate(self.specs):
+            if s[0] == "C":
+                vals = [int(v) for v in s[1:].split("-")]
+                K, next_c = vals[0], vals[1]
+                stride = vals[2] if len(vals) == 3 else 1
+                if not first_conv:
+                    self._add(f"norm_{i}", _norm2d(normalization, cur_c))
+                first_conv = False
+                setattr(self, f"conv_{i}", Conv(cur_c, next_c, K, stride,
+                                                dtype=dtype, padding=pad))
+                cur_c = next_c
+            elif s[0] == "R":
+                norm = "none" if first_conv else normalization
+                first_conv = False
+                for j in range(2):
+                    self._add(f"res_{i}_n{j}", _norm2d(norm, cur_c))
+                    setattr(self, f"res_{i}_c{j}",
+                            Conv(cur_c, cur_c, 3, dtype=dtype))
+            elif s.startswith("FC"):
+                _, din, dout = s.split("-")
+                setattr(self, f"fc_{i}", Dense(int(din), int(dout),
+                                               dtype=dtype))
+                cur_c = int(dout)
+            elif s[0] not in "UP":
+                raise ValueError(f"Invalid layer spec {s!r}")
+
+    def _add(self, name: str, module: Optional[nn.Module]) -> None:
+        if module is not None:
+            setattr(self, name, module)
+
+    @staticmethod
+    def parse(arch):
+        specs = arch.split(",") if isinstance(arch, str) else list(arch)
+        cur_c = 3
+        if specs and specs[0][0] == "I":
+            cur_c = int(specs[0][1:])
+            specs = specs[1:]
+        return specs, cur_c
+
+    @classmethod
+    def out_channels(cls, arch) -> int:
+        specs, cur_c = cls.parse(arch)
+        for s in specs:
+            if s[0] == "C":
+                cur_c = int(s[1:].split("-")[1])
+            elif s.startswith("FC"):
+                cur_c = int(s.split("-")[2])
+        return cur_c
+
+    def _norm(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+        norm = getattr(self, name, None)
+        return x if norm is None else norm(x, train)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        first_conv = True
+        for i, s in enumerate(self.specs):
+            if s[0] == "C":
+                if not first_conv:
+                    x = self.act(self._norm(f"norm_{i}", x, train))
+                first_conv = False
+                x = getattr(self, f"conv_{i}")(x)
+            elif s[0] == "R":
+                first_conv = False
+                y = x
+                for j in range(2):
+                    y = self.act(self._norm(f"res_{i}_n{j}", y, train))
+                    y = getattr(self, f"res_{i}_c{j}")(y)
+                x = x + y
+            elif s[0] == "U":
+                x = upsample_nearest(x, int(s[1:]))
+            elif s[0] == "P":
+                f = int(s[1:])
+                lead = x.shape[:-3]
+                xn = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+                pool = F.max_pool2d if self.pooling == "max" else F.avg_pool2d
+                xn = pool(xn, f, f)
+                x = xn.permute(0, 2, 3, 1).reshape(*lead, *xn.shape[2:],
+                                                   xn.shape[1])
+            else:  # FC
+                x = getattr(self, f"fc_{i}")(x.reshape(x.shape[0], -1))
+                if i + 1 < len(self.specs):
+                    x = self.act(x)
+        return x

@@ -5,6 +5,8 @@ obj_vecs_net, `gconv_num_layers` GraphTripleConv layers over spatial-relation
 edges and time-gated action edges, and a box *delta* added to the previous
 box. All time-dependent inputs are built for every t up front; the JAX
 package's `nn.scan` becomes a Python loop over one shared `step` module.
+
+`MaskNet` and `create_mask_vecs` are the latent per-object mask head.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from torch import nn
 
 from ag2video_torch.models.embeddings import AttributeEmbeddings
 from ag2video_torch.models.gcn import GraphTripleConv
-from ag2video_torch.models.layers import MLP, Dense, Embed
+from ag2video_torch.models.layers import (MLP, Conv, Dense, Embed,
+                                          upsample_nearest)
+from ag2video_torch.models.normalization import BatchNorm
 
 
 def action_clock(actions: torch.Tensor, timesteps: int,
@@ -155,3 +159,51 @@ class Acts2LayoutModel(nn.Module):
             "locs": torch.stack([x_end, y_end], dim=-1),
         }
         return temporal_obj_vecs, boxes_pred, actions_data
+
+
+class MaskNet(nn.Module):
+    """Per-object soft-mask head (reference _build_mask_net, model.py:76-97):
+    from 1x1, stages of nearest x2 upsample, 3x3 conv, BatchNorm and relu up
+    to mask_size, then a 1x1 conv to one channel and a sigmoid. Off by
+    default (Config.mask_size = 0) and not wired into the layout model, as
+    upstream; it feeds `ops.rasterize.masks_to_layout`."""
+
+    def __init__(self, features: int, mask_size: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if mask_size & (mask_size - 1):
+            raise ValueError("Mask size must be a power of 2")
+        self.n_stages = 0
+        while (1 << self.n_stages) < mask_size:
+            i = self.n_stages
+            setattr(self, f"conv_{i}", Conv(features, features, 3,
+                                            dtype=dtype))
+            setattr(self, f"bn_{i}", BatchNorm(features))
+            self.n_stages += 1
+        self.conv_out = Conv(features, 1, 1, dtype=dtype)
+
+    def forward(self, mask_vecs: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """mask_vecs (..., D) -> (..., mask_size, mask_size) masks, each
+        value in (0, 1)."""
+        lead = mask_vecs.shape[:-1]
+        x = mask_vecs.reshape(-1, 1, 1, mask_vecs.shape[-1])
+        for i in range(self.n_stages):
+            x = upsample_nearest(x, 2)
+            x = getattr(self, f"conv_{i}")(x)
+            x = torch.relu(getattr(self, f"bn_{i}")(x, train))
+        x = self.conv_out(x)
+        size = 1 << self.n_stages
+        return torch.sigmoid(x[..., 0]).reshape(*lead, size, size)
+
+
+def create_mask_vecs(obj_vecs: torch.Tensor, generator: torch.Generator,
+                     mask_noise_dim: int) -> torch.Tensor:
+    """Object vectors (B, O, D) with one N(0, 1) noise vector, drawn from
+    `generator` (on its device), appended to every (batch, object) slot
+    (reference create_mask_vecs, model.py:90-97)."""
+    noise = torch.randn((1, 1, mask_noise_dim), generator=generator,
+                        device=generator.device)
+    noise = noise.to(obj_vecs.device, obj_vecs.dtype).expand(
+        *obj_vecs.shape[:-1], mask_noise_dim)
+    return torch.cat([obj_vecs, noise], dim=-1)

@@ -1,6 +1,6 @@
 """Normalization layers (port of ag2video_tpu/models/normalization.py):
 BatchNorm, GroupNorm (the 'instance' and 'group' norms), the param-free
-norm, SPADE, spectral-norm convs.
+norm, SPADE, spectral-norm convs and the spectral-norm Dense.
 
 Train mode is an explicit argument, `train`, threaded through every
 forward as the JAX package threads it; `module.training` is not read. With
@@ -37,8 +37,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ag2video_torch.models.layers import (Conv, ConvTranspose, conv2d_nhwc,
-                                          resize_nearest)
+from ag2video_torch.models.layers import (Conv, ConvTranspose, Dense,
+                                          conv2d_nhwc, resize_nearest)
 
 
 def parse_spade_norm(config_text: str):
@@ -214,7 +214,9 @@ class SpectralWeight(nn.Module):
         return x * torch.rsqrt((x * x).sum() + self.eps)
 
     def _normalize(self, weight: torch.Tensor, update_stats: bool):
-        if self.transposed:  # back to the flax kernel (kh, kw, in, out)
+        if weight.dim() == 2:  # a Dense kernel: (out, in) -> flax's (in, out)
+            value = weight.float().t()
+        elif self.transposed:  # back to the flax kernel (kh, kw, in, out)
             value = weight.float().flip(2, 3).permute(2, 3, 0, 1)
         else:
             value = weight.float().permute(2, 3, 1, 0)
@@ -237,8 +239,9 @@ class SpectralWeight(nn.Module):
                   update_stats: bool = False) -> torch.Tensor:
         """(out, in, kh, kw) kernel -> kernel / sigma, sigma from one power
         iteration from `u` on the kernel viewed as (kh*kw*in, out) (a
-        transposed kernel is viewed through its flax layout); with
-        `update_stats`, the new `u` and sigma are stored."""
+        transposed kernel is viewed through its flax layout, a Dense kernel
+        (out, in) as (in, out)); with `update_stats`, the new `u` and sigma
+        are stored."""
         if update_stats or (torch.is_grad_enabled() and weight.requires_grad):
             return self._normalize(weight, update_stats)
         key = (weight.data_ptr(), weight._version, weight.dtype,
@@ -268,6 +271,22 @@ class SNConv(nn.Module):
         if self.spectral is None:
             return self.conv(x)
         return self.conv(x, self.spectral.normalize(self.conv.weight, train))
+
+
+class SNDense(nn.Module):
+    """Dense with optional spectral norm (flax SNDense: submodule `dense`;
+    one power iteration per call, the state written when `train`)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 spectral: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dense = Dense(in_features, features, use_bias, dtype)
+        self.spectral = SpectralWeight(features) if spectral else None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.spectral is None:
+            return self.dense(x)
+        return self.dense(x, self.spectral.normalize(self.dense.weight, train))
 
 
 class NormConv(nn.Module):

@@ -15,6 +15,10 @@ Three pieces live here:
 * the dispatch, `boxes_to_layout_batch`: a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel or raises. It never falls back.
 
+Beside them, two rasterizers that are XLA code in the JAX package and plain
+PyTorch here: `boxes_to_mask` (the hard union of the boxes) and
+`masks_to_layout` (per-object soft masks sampled into their boxes).
+
 The kernel replaces the Pallas TPU kernel
 ag2video_tpu/ops/pallas/rasterize_kernel.py (`_kernel`, via
 `boxes_to_layout_pallas`). On the H100 it is bound by its output write. For
@@ -29,6 +33,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ag2video_torch.ops.sampling import grid_sample_2d, linspace01
 
 TILE = 8  # reference tile size, models/layout.py:52
 
@@ -212,3 +218,75 @@ def boxes_to_layout_batch(vecs: torch.Tensor, boxes: torch.Tensor, H: int,
         vecs.reshape(n, O, D), boxes.reshape(n, O, 4), mask.reshape(n, O),
         H, W)
     return out.reshape(*lead, H, W, D)
+
+
+# One sample, vecs (O, D), boxes (O, 4), mask (O,) -> (H, W, D): the batched
+# dispatch with no leading dims (the JAX package's single-sample name).
+boxes_to_layout = boxes_to_layout_batch
+
+
+def boxes_to_mask(boxes: torch.Tensor, H: int, W: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hard 0/1 union of boxes (..., O, 4) -> (..., H, W) fp32: each box
+    covers the half-open pixel range [floor(x0 * W), floor(x0 * W) +
+    floor(w * W)) and likewise in y; masked objects cover nothing."""
+    if mask is None:
+        mask = (boxes != 0).any(dim=-1)
+    boxes = boxes.float()
+    x0 = torch.floor(boxes[..., 0:1] * W)
+    y0 = torch.floor(boxes[..., 1:2] * H)
+    x1 = x0 + torch.floor(boxes[..., 2:3] * W)
+    y1 = y0 + torch.floor(boxes[..., 3:4] * H)
+    xs = torch.arange(W, dtype=torch.float32, device=boxes.device)
+    ys = torch.arange(H, dtype=torch.float32, device=boxes.device)
+    inx = ((xs >= x0) & (xs < x1) & (mask[..., None] > 0)).float()
+    iny = ((ys >= y0) & (ys < y1)).float()
+    return (iny[..., :, None] * inx[..., None, :]).amax(dim=-3)
+
+
+def masks_to_layout(vecs: torch.Tensor, boxes: torch.Tensor,
+                    masks: torch.Tensor, H: int, W: Optional[int] = None,
+                    obj_mask: Optional[torch.Tensor] = None,
+                    test_mode: bool = False) -> torch.Tensor:
+    """Per-object soft masks, placed in their boxes and scaled by vecs.
+
+    vecs (O, D); boxes (O, 4) xywh; masks (O, M, M). Returns (H, W, D).
+
+    Each mask is sampled (align_corners=True, zeros padding) through its
+    box's inverse affine grid. Train mode sums the O layers. Test mode
+    composites: objects in ascending order of mass (the sum of the layer),
+    equal masses in index order (a stable sort, as `jnp.argsort` is), each
+    claiming the pixels where its sampled mask exceeds 0.5 and no earlier
+    object has claimed.
+    """
+    if W is None:
+        W = H
+    O = masks.shape[0]
+    if obj_mask is None:
+        obj_mask = (boxes != 0).any(dim=-1)
+    x0, y0, ww, hh = (boxes[:, i:i + 1] for i in range(4))
+    xs = linspace01(W, boxes.device)[None, :]
+    ys = linspace01(H, boxes.device)[None, :]
+    # Tensors, not Python scalars: the JAX package divides by these.
+    safe_ww = torch.where(ww == 0, torch.ones_like(ww), ww)
+    safe_hh = torch.where(hh == 0, torch.ones_like(hh), hh)
+    gx = ((xs - x0) / safe_ww) * 2.0 - 1.0  # (O, W)
+    gy = ((ys - y0) / safe_hh) * 2.0 - 1.0  # (O, H)
+    grid = torch.stack([gx[:, None, :].expand(O, H, W),
+                        gy[:, :, None].expand(O, H, W)], dim=-1)
+    sampled = grid_sample_2d(masks[..., None].float(), grid,
+                             align_corners=True, padding_mode="zeros")[..., 0]
+    sampled = sampled * (obj_mask[:, None, None] > 0)
+    samples = sampled[..., None] * vecs[:, None, None, :]  # (O, H, W, D)
+    if not test_mode:
+        return samples.sum(dim=0)
+
+    mass = samples.sum(dim=(1, 2, 3))
+    hard = (sampled > 0.5).float()
+    claimed = torch.zeros(H, W, device=vecs.device)
+    out = torch.zeros(H, W, vecs.shape[-1], device=vecs.device)
+    for o in torch.argsort(mass, stable=True).tolist():
+        add = (1.0 - claimed) * hard[o]
+        out = out + samples[o] * add[..., None]
+        claimed = claimed + add
+    return out

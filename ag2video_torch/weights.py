@@ -17,6 +17,7 @@ name:
               .../scale, .../bias   -> .../weight, .../bias   (BatchNorm)
   batch_stats .../mean, .../var     -> .../running_mean, .../running_var
   spectral    X/SpectralNorm_0/conv/kernel/{u,sigma} -> X.spectral.{u,sigma}
+              X/SpectralNorm_0/dense/kernel/{u,sigma} (SNDense) -> the same
               X/u (FactorizedNormConv's own)       -> X.u
 
 Under flax's `nn.scan` the `step` / `frame_step` parameters carry no time
@@ -125,7 +126,7 @@ def _port_key(col: str, path) -> str:
         if cut is None and name == "u":
             key = mod + ["u"]  # factorized.spectral_normalize's u
         elif cut is None or name not in ("u", "sigma") or \
-                mod[cut + 1:] != ["conv", "kernel"]:
+                mod[cut + 1:] not in (["conv", "kernel"], ["dense", "kernel"]):
             raise KeyError(f"unknown spectral leaf {'/'.join(path)}")
         else:
             key = mod[:cut] + ["spectral", name]

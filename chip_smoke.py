@@ -12,8 +12,9 @@ Phases, each printing one line (any failure raises and exits nonzero):
 2. the box-rasterizer kernel against its plain PyTorch version at the
    shapes of KERNEL_SHAPES (fully masked frames must come out exactly
    zero), then kernel, plain, library (torch.bmm) and fill_ times at the
-   dense generator's shape (c) and at the discriminator's shape (disc), in
-   turns (`time_shape`), beside the kernel's bound;
+   dense generator's shape (c), at the discriminator's shape (disc) and at
+   the layout-conditioned MultiscaleDiscriminator's shape (msd), in turns
+   (`time_shape`), beside the kernel's bound;
 3. gradients through the kernel's autograd.Function against autograd of the
    plain version, in fp32 and at the discriminator's bf16 shape;
 4. a small fp32 model at 64x64 built on the card (the default device) and
@@ -33,8 +34,9 @@ Phases, each printing one line (any failure raises and exits nonzero):
    frames/s and peak memory in phase 5's format;
 8. a small fp32 trainer at 64x64 (TF32 off), per frontend: `train.Trainer`
    on the card, on the CPU, and on the card with the plain rasterizer, from
-   one seed; two `train_step`s and one `graph_step` each: the losses and
-   the parameters after the steps must agree;
+   one seed; two `train_step`s and one `graph_step` each: the losses, the
+   parameters after the steps and the first `train_step`'s gradients (per
+   parameter) must agree;
 9. the training iteration at full width, the JAX package's Config defaults
    for CATER-256x256 (B=3 clips of 4 frames, graph clips of 16, factorized
    frontend, bf16, num_D=2, n_layers_D=4, ndf=64, feature matching and
@@ -111,7 +113,27 @@ Phases, each printing one line (any failure raises and exits nonzero):
    falls, the held-out accuracies, the asset loads into the port's
    `FidelityScore` on the card; `scripts.eval_iou` on phase 10's run
    directory in its plain mode and both sweeps: every value finite; no
-   rasterizer call of either kind.
+   rasterizer call of either kind;
+16. the latent modules (models/discriminator_variants.py, models/encoder.py,
+   MaskNet, ops/crop.py, ops/sampling.py, masks_to_layout) at the Config
+   defaults for CATER-256x256 (B=3, T=4, O=12, bf16, ndf=64, num_D=2,
+   n_layers_D=4, embedding_dim=128, crop_size=32): (a) one D step (forward
+   on real and on fake clips, hinge loss, backward, Adam) of
+   MultiscaleDiscriminator, MultiscaleDiscriminatorT and
+   AcCropDiscriminator: finite loss and gradients, exactly 1 rasterizer
+   kernel launch and no plain call per MultiscaleDiscriminator forward
+   (none for the other two), ms per step, peak memory and the busy share
+   of one profiled step; the real clips are seeded synthetic clips
+   (`make_inputs`), the fake ones the seeded generator's; (b) at 64x64 in
+   fp32, every variant, ConvEncoder, MaskNet, masks_to_layout (both modes)
+   and crop_bbox_batch on the card against the CPU from one seed, outputs
+   and gradients, and MultiscaleDiscriminator with the kernel against the
+   plain rasterizer on the card; (c) ConvEncoder at full width (nf=64,
+   z_dim=256) on the 12 frames with reparameterize and kld_loss, forward
+   and backward; (d) MaskNet (mask_size 16) on create_mask_vecs of the
+   layout model's object vectors, then masks_to_layout to 256x256 per
+   sample in both modes: finite, and the test mode a composite; (e) the
+   kernel at the msd shape, from phase 2.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -119,6 +141,7 @@ Then a JSON line describing each kernel and, last, the device line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import glob
 import io
 import json
@@ -148,8 +171,16 @@ from ag2video_torch.eval.video_backbones import (BACKBONES,
                                                  load_backbone_params)
 from ag2video_torch.inference import GenerationSession, generate, make_inputs
 from ag2video_torch.inference.generate import GIFS_SKIPPED
+from ag2video_torch.losses.gan import multiscale_gan_loss
+from ag2video_torch.losses.perceptual import kld_loss
 from ag2video_torch.models import AG2VideoModel
-from ag2video_torch.models.generator import Layout2VidGenerator
+from ag2video_torch.models.discriminator_variants import (
+    AcCropDiscriminator, MultiscaleDiscriminator, MultiscaleDiscriminatorT)
+from ag2video_torch.models.encoder import ConvEncoder, reparameterize
+from ag2video_torch.models.generator import (Layout2VidGenerator,
+                                             remove_dummy_objects_mask)
+from ag2video_torch.models.layout_model import MaskNet, create_mask_vecs
+from ag2video_torch.ops import crop_bbox_batch, masks_to_layout
 from ag2video_torch.ops._kernels import host_library, rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
@@ -209,6 +240,22 @@ STEP2_TOL = dict(rtol=1e-2, atol=1e-6)
 # Parameters after two Adam steps: each update is at most ~1.15 * lr, so a
 # flipped element moves by at most ~4.3 * lr over the two.
 PARAM_ATOL = 5 * TRAIN_SMALL["learning_rate"]
+# Those parameters cannot see a wrong gradient: Adam moves each by about
+# lr whatever the gradient's size. So the first train_step's gradients (the
+# G step's and the D step's, from identical weights) are held per
+# parameter by rel-L2, the worst parameter and the median of all. A
+# gradient that is zero but for rounding (a bias before a train-mode norm)
+# is held against ZERO_GRAD_REL of its network's largest instead of its own
+# norm. Rounding-level differences of the forward grow in the gradients
+# (grid_sample's gradient w.r.t. the flow grid is piecewise in the image;
+# ReLU kinks; train-mode BN at B=2): measured on the H100, the card
+# against the CPU <= 2.2e-2 per parameter (median <= 4.7e-3), and the same
+# spread between the kernel and the plain rasterizer on the card on the
+# dense frontend (1.6e-2, median 4.5e-3). The channels_last avg-pool
+# backward fault gave 0.58 and a median of 0.24 against the CPU.
+TRAIN_GRAD_REL_L2 = 1e-1
+TRAIN_GRAD_MEDIAN = 2e-2
+ZERO_GRAD_REL = 1e-5
 # Phase 9: the JAX package's Config defaults at CATER-256x256 (batch 3,
 # 4-frame clips, 4 * 4-frame graph clips, 12 objects / triplets, 4
 # actions, factorized frontend, D and losses as configured), in bf16.
@@ -258,10 +305,20 @@ def check_close(name, got, ref, tol):
     err = (got.float() - ref.float()).abs()
     bound = tol["atol"] + tol["rtol"] * ref.float().abs()
     worst = float(err.max()) if err.numel() else 0.0
-    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+    if not bool(torch.isfinite(got).all() & torch.isfinite(ref).all()) or \
+            bool((err > bound).any()):
         raise AssertionError(f"{name}: max |diff| {worst:.3e} exceeds "
                              f"rtol={tol['rtol']} atol={tol['atol']}")
     return worst
+
+
+def rel_l2(got, ref, name="output"):
+    """||got - ref|| / ||ref||, in float64; raises on a non-finite value on
+    either side (so a max over readings never drops a NaN)."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    if not bool(torch.isfinite(got).all() & torch.isfinite(ref).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
 def raster_inputs(N, O, D, H, dtype, seed):
@@ -324,11 +381,15 @@ KERNEL_SHAPES = [
     ("ragged", 2, 11, 100, 37, 50, torch.bfloat16),
     ("b2bf", 2, 20, 30, 20, 24, torch.bfloat16),
     ("disc", 9, 12, 256, 256, 256, torch.bfloat16),
+    ("msd", 12, 12, 512, 256, 256, torch.bfloat16),
 ]
 SHAPE_C = (16, 11, 512, 256, 256)  # (N, O, D, H, W) of the generator
 # The discriminator's call in training: N = B * (T - 1) = 9 frames of the
 # full-width config, O = 12, D = 2 * gconv_dim = 256.
 SHAPE_DISC = (9, 12, 256, 256, 256)
+# The layout-conditioned MultiscaleDiscriminator's call (phase 16): N = B * T
+# = 12 frames, O = 12, D = 4 families * embedding_dim 128 = 512.
+SHAPE_MSD = (12, 12, 512, 256, 256)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, same source
 
@@ -402,7 +463,8 @@ def phase_kernel():
             raise AssertionError(f"({name}) masked frame is not zero")
 
     timing, lines = {}, []
-    for name, shape, seed in (("c", SHAPE_C, 3), ("disc", SHAPE_DISC, 5)):
+    for name, shape, seed in (("c", SHAPE_C, 3), ("disc", SHAPE_DISC, 5),
+                              ("msd", SHAPE_MSD, 7)):
         N, O, D, H, W = shape
         vecs, boxes, mask = raster_inputs(N, O, D, H, torch.bfloat16, seed)
         ms = time_shape(vecs, boxes, mask, H, W)
@@ -637,22 +699,32 @@ def phase_factorized():
           f", conf_pred {flipped:.2%} differ")
 
 
+def named_leaves(trainer, attr):
+    """{"model.<name>" / "disc.<name>": the parameter's `attr` on the CPU}
+    (leaves whose `attr` is None left out)."""
+    return {f"{m}.{k}": getattr(p, attr).detach().cpu() for m, mod in
+            (("model", trainer.state.model), ("disc", trainer.state.disc))
+            for k, p in mod.named_parameters()
+            if getattr(p, attr) is not None}
+
+
 def run_trainer(cfg, vocab, batch, graph, device=None, backend="auto"):
     """Two train_steps and one graph_step -> (losses of each step as
-    floats, {name: parameter} after them, the trainer)."""
+    floats, {name: parameter} after them, the trainer, {name: gradient} of
+    the first train_step: the G step's in the model, the D step's in D,
+    both taken at the initial weights)."""
     trainer = Trainer(cfg, vocab, device=device)
     trainer.init(batch)
     trainer.set_rasterizer_backend(backend)
     steps = []
-    for _ in range(2):
+    for i in range(2):
         steps.append({k: float(v) for k, v in
                       trainer.train_step(batch).items()})
+        if i == 0:
+            grads = named_leaves(trainer, "grad")
     steps.append({k: float(v) for k, v in
                   trainer.graph_step(graph).items()})
-    params = {f"{m}.{k}": p.detach().cpu() for m, mod in
-              (("model", trainer.state.model), ("disc", trainer.state.disc))
-              for k, p in mod.named_parameters()}
-    return steps, params, trainer
+    return steps, named_leaves(trainer, "data"), trainer, grads
 
 
 def compare_runs(name, got, want):
@@ -674,6 +746,35 @@ def compare_runs(name, got, want):
         raise AssertionError(f"{name}: parameters differ by {worst_p:.3e} "
                              f"> {PARAM_ATOL:.1e} after the steps")
     return worst_rel, worst_p
+
+
+def compare_grads(name, got, want):
+    """The first train_step's gradients of two run_trainer runs, per
+    parameter: ||got - want|| / max(||want||, ZERO_GRAD_REL * the largest
+    ||want|| of its network), the worst within TRAIN_GRAD_REL_L2 and the
+    median within TRAIN_GRAD_MEDIAN -> (worst, its parameter, median)."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: gradients of other parameters: "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+    errs = []
+    for net in ("model.", "disc."):
+        keys = [k for k in want if k.startswith(net)]
+        floor = ZERO_GRAD_REL * max(float(want[k].double().norm())
+                                    for k in keys)
+        for k in keys:
+            g, w = got[k].double(), want[k].double()
+            if not bool(torch.isfinite(g).all() & torch.isfinite(w).all()):
+                raise AssertionError(f"{name}: {k}: non-finite gradient")
+            errs.append((float((g - w).norm()) / max(float(w.norm()), floor),
+                         k))
+    errs.sort()
+    worst, median = errs[-1], errs[len(errs) // 2][0]
+    if not (worst[0] <= TRAIN_GRAD_REL_L2 and median <= TRAIN_GRAD_MEDIAN):
+        raise AssertionError(
+            f"{name}: gradients differ by {worst[0]:.3e} rel-L2 ({worst[1]};"
+            f" bound {TRAIN_GRAD_REL_L2}), median {median:.3e} (bound "
+            f"{TRAIN_GRAD_MEDIAN})")
+    return worst[0], worst[1], median
 
 
 def phase_small_trainer():
@@ -706,15 +807,22 @@ def phase_small_trainer():
             raise AssertionError("the plain run launched the kernel")
         e_cpu = compare_runs("card vs CPU", card, cpu)
         e_plain = compare_runs("kernel vs plain", card, plain_run)
+        g_cpu = compare_grads("card vs CPU", card[3], cpu[3])
+        g_plain = compare_grads("kernel vs plain", card[3], plain_run[3])
         out.append(f"{'factorized' if factorized else 'dense'}: {launches} "
                    f"kernel launches in 2 train_steps; card vs CPU losses "
-                   f"{e_cpu[0]:.2e} rel, params {e_cpu[1]:.2e}; kernel vs "
-                   f"plain losses {e_plain[0]:.2e} rel, params "
-                   f"{e_plain[1]:.2e}")
+                   f"{e_cpu[0]:.2e} rel, params {e_cpu[1]:.2e}, "
+                   f"{len(cpu[3])} gradients {g_cpu[0]:.2e} ({g_cpu[1]}), "
+                   f"median {g_cpu[2]:.2e}; kernel vs plain losses "
+                   f"{e_plain[0]:.2e} rel, params {e_plain[1]:.2e}, "
+                   f"gradients {g_plain[0]:.2e} ({g_plain[1]}), median "
+                   f"{g_plain[2]:.2e}")
     print("phase 8 small fp32 trainer 64x64 (2 train_steps + 1 graph_step,"
           f" losses within rtol {STEP1_TOL['rtol']:.0e} on the first step "
           f"and {STEP2_TOL['rtol']:.0e} after, params within "
-          f"{PARAM_ATOL:.0e}): " + "; ".join(out))
+          f"{PARAM_ATOL:.0e}, the first step's gradients within "
+          f"{TRAIN_GRAD_REL_L2:.0e} rel-L2 per parameter and "
+          f"{TRAIN_GRAD_MEDIAN:.0e} in the median): " + "; ".join(out))
 
 
 def kernel_ms(fn):
@@ -1511,13 +1619,6 @@ EVAL_REL_L2 = 1e-4           # card against CPU, TF32 off
 EVAL_BATCHES = 14
 
 
-def rel_l2(got, ref):
-    got, ref = got.double().cpu(), ref.double().cpu()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("non-finite output")
-    return float((got - ref).norm() / ref.norm())
-
-
 def eval_net(net, path, device):
     """(forward on seeded inputs -> one flat tensor, what one call counts
     as images or clips) of `net` from its asset at `path` on `device`."""
@@ -1602,7 +1703,7 @@ def phase_eval(run_dir, tmp):
         t0 = time.perf_counter()
         want = cpu()
         cpu_s = time.perf_counter() - t0
-        err = rel_l2(card(), want)
+        err = rel_l2(card(), want, net)
         if not err <= EVAL_REL_L2:
             raise AssertionError(f"{net}: card vs CPU rel-L2 {err:.3e}")
         ms, peak = time_card(card)
@@ -1690,6 +1791,328 @@ def phase_eval(run_dir, tmp):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 16: the latent modules. (b) at 64x64 in fp32, the card against the
+# CPU: one seed, narrow widths (the CPU side runs each module once forward
+# and once backward). Outputs within MODEL_TOL_CPU; the gradients of a
+# fixed random weighting of every float output, w.r.t. every parameter (as
+# one vector) and the inputs, within LATENT_GRAD_REL_L2 relative L2: fp32
+# with TF32 off, convs summed in other orders.
+LATENT_SMALL = dict(ndf=16, n_layers_D=4, num_D=2, embedding_dim=16)
+LATENT_GRAD_REL_L2 = 1e-4
+# A test-mode composite pixel whose sampled mask lies this close to the
+# 0.5 threshold may fall on either side of it between the card and the CPU
+# (rounding); such pixels are left out of that comparison and counted.
+THRESHOLD_BAND = 1e-4
+
+
+def flat_floats(out):
+    """The floating-point tensors of a nested output, in order."""
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in flat_floats(o)]
+    return [out] if torch.is_tensor(out) and out.is_floating_point() else []
+
+
+def forward_backward(fn, module, args, wrt, seed):
+    """fn(*args) with grad on args[wrt] -> (float outputs, gradients of the
+    seeded random weighting w.r.t. the module's params (one vector) and
+    args[wrt])."""
+    args = [a.clone().requires_grad_(True) if i in wrt else a
+            for i, a in enumerate(args)]
+    outs = flat_floats(fn(*args))
+    params = list(module.parameters()) if module is not None else []
+    if not params and not wrt:
+        return [o.detach() for o in outs], None, ()
+    g = torch.Generator().manual_seed(seed)
+    total = sum((o.float() * torch.randn(o.shape, generator=g).to(o.device))
+                .sum() for o in outs)
+    grads = torch.autograd.grad(total, params + [args[i] for i in wrt])
+    n = len(params)
+    pvec = torch.cat([x.reshape(-1) for x in grads[:n]]) if n else None
+    return [o.detach() for o in outs], pvec, grads[n:]
+
+
+def latent_cases(vocab):
+    """Phase 16 (b): name -> (module or None, fn(module, *args), args as
+    numpy, indices of args that take a gradient)."""
+    rng = np.random.RandomState(16)
+    B, T, O, H = 1, 2, 6, 64
+    objs = rng.randint(1, 3, (B, O, len(vocab["attributes"])))
+    objs[:, -1] = 0
+    boxes = np.concatenate([rng.uniform(0.0, 0.6, (B, T, O, 2)),
+                            rng.uniform(0.15, 0.45, (B, T, O, 2))],
+                           -1).astype(np.float32)
+    frames = rng.randn(B, T, H, H, 3).astype(np.float32)
+    masks = rng.rand(O, 8, 8).astype(np.float32)
+    vecs = rng.randn(O, 16).astype(np.float32)
+    obj_mask = (objs[0, :, 0] != 0).astype(np.float32)
+    lay = lambda test: (lambda m, v, b, k: masks_to_layout(  # noqa: E731
+        v, b, k, H, obj_mask=torch.from_numpy(obj_mask).to(v.device),
+        test_mode=test))
+    return {
+        "MultiscaleDiscriminator": (
+            MultiscaleDiscriminator(vocab, **LATENT_SMALL),
+            lambda m, *a: m(*a), (frames, objs, boxes), (0,)),
+        "MultiscaleDiscriminatorT": (
+            MultiscaleDiscriminatorT(T, LATENT_SMALL["num_D"],
+                                     LATENT_SMALL["ndf"],
+                                     LATENT_SMALL["n_layers_D"]),
+            lambda m, *a: m(*a), (frames,), (0,)),
+        "AcCropDiscriminator": (
+            AcCropDiscriminator(vocab, 16, "C4-16-2,C4-32-2,C4-64-2"),
+            lambda m, *a: m(*a), (frames, objs, boxes), (0,)),
+        "ConvEncoder": (ConvEncoder(nf=16, z_dim=32),
+                        lambda m, *a: m(*a), (frames[0],), (0,)),
+        "MaskNet": (MaskNet(32, 16), lambda m, *a: m(*a),
+                    (rng.randn(B, O, 32).astype(np.float32),), (0,)),
+        "masks_to_layout train": (None, lay(False),
+                                  (vecs, boxes[0, 0], masks), (0, 2)),
+        # No gradient: a pixel at the threshold (left out below) moves it.
+        "masks_to_layout test": (None, lay(True),
+                                 (vecs, boxes[0, 0], masks), ()),
+        "crop_bbox_batch": (None, lambda m, *a: crop_bbox_batch(
+            *a, 16, mask=torch.from_numpy(objs[:, :, 0] != 0).to(
+                a[0].device)), (frames, boxes), (0,)),
+    }
+
+
+def undecided_pixels(vecs, boxes, masks, H):
+    """The pixels where some object's sampled mask is within THRESHOLD_BAND
+    of 0.5 (train mode with one-hot vecs gives the sampled masks)."""
+    sampled = masks_to_layout(torch.eye(len(vecs)), boxes, masks, H)
+    return ((sampled - 0.5).abs() < THRESHOLD_BAND).any(-1)
+
+
+def phase_latent_small(vocab):
+    """Phase 16 (b) -> printable summary."""
+    errs = []
+    for i, (name, (module, fn, args, wrt)) in enumerate(
+            latent_cases(vocab).items()):
+        if module is not None:
+            init_params(module, 16 + i)
+        runs = {}
+        for run in ("cpu", "card", "plain"):
+            if run == "plain" and name != "MultiscaleDiscriminator":
+                continue
+            m = module if run == "cpu" or module is None else \
+                copy.deepcopy(module).cuda()
+            if run == "plain":
+                m.rasterizer_backend = "plain"
+            t_args = [torch.from_numpy(np.asarray(a)) for a in args]
+            if run != "cpu":
+                t_args = [a.cuda() for a in t_args]
+            runs[run] = forward_backward(lambda *a: fn(m, *a), m, t_args,
+                                         wrt, i)
+        (c_out, c_p, c_g), (k_out, k_p, k_g) = runs["cpu"], runs["card"]
+        skip = None
+        if name == "masks_to_layout test":
+            skip = undecided_pixels(*(torch.from_numpy(a) for a in args),
+                                    64)[..., None]
+        worst = 0.0
+        for a, b in zip(k_out, c_out):
+            a = a.cpu()
+            if skip is not None:
+                a, b = a.masked_fill(skip, 0.0), b.masked_fill(skip, 0.0)
+            worst = max(worst, check_close(f"{name} card vs CPU", a, b,
+                                           MODEL_TOL_CPU))
+        g_err = max([rel_l2(a, b, f"{name} input gradient")
+                     for a, b in zip(k_g, c_g)] +
+                    ([rel_l2(k_p, c_p, f"{name} parameter gradient")]
+                     if c_p is not None else []), default=0.0)
+        if not g_err <= LATENT_GRAD_REL_L2:
+            raise AssertionError(f"{name}: card vs CPU gradients rel-L2 "
+                                 f"{g_err:.2e}")
+        line = f"{name} {worst:.2e}" + (f" / grads {g_err:.2e}"
+                                         if c_p is not None or c_g else "")
+        if skip is not None:
+            line += f" ({int(skip.sum())} undecided pixels left out)"
+        if "plain" in runs:
+            p_out, p_p, p_g = runs["plain"]
+            e = max(check_close("kernel vs plain on the card", a, b,
+                                MODEL_TOL_CARD)
+                    for a, b in zip(k_out, p_out))
+            e_g = max(rel_l2(k_p, p_p, "plain parameter gradient"),
+                      *(rel_l2(a, b, "plain input gradient")
+                        for a, b in zip(k_g, p_g)))
+            if not e_g <= LATENT_GRAD_REL_L2:
+                raise AssertionError(f"kernel vs plain gradients {e_g:.2e}")
+            line += f", kernel vs plain on the card {e:.2e} / grads {e_g:.2e}"
+        errs.append(line)
+    return "; ".join(errs)
+
+
+def d_step_loss(name, disc, real, fake, objs, boxes):
+    """The hinge D loss of one variant on a real and a fake batch (plus the
+    auxiliary attribute loss on the real crops for the crop D)."""
+    if name == "AcCropDiscriminator":
+        s_real, ac_real, _, mask = disc(real, objs, boxes, train=True)
+        s_fake, _, _, _ = disc(fake, objs, boxes, train=True)
+        w = mask.float()[:, None]
+        hinge = ((torch.relu(1 - s_real) * w).sum() +
+                 (torch.relu(1 + s_fake) * w).sum()) / w.sum().clamp_min(1)
+        return hinge + ac_real
+    args = (objs, boxes) if name == "MultiscaleDiscriminator" else ()
+    return (multiscale_gan_loss(disc(real, *args, train=True), True, True)
+            + multiscale_gan_loss(disc(fake, *args, train=True), False,
+                                  True))
+
+
+def phase_latent():
+    """Phase 16: the latent modules -> (msd launches per forward, ms per D
+    step by variant)."""
+    t_phase = time.perf_counter()
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **TRAIN_FULL).derive(vocab)
+    B, T = cfg.batch_size, cfg.frames_per_action
+    H, W = cfg.image_size
+    dtype = getattr(torch, cfg.compute_dtype)
+    batch = make_inputs(cfg, vocab, B, T, seed=16)
+    model = AG2VideoModel(cfg, vocab)
+    fake, _ = generate(model, batch)  # the seeded generator's clips
+    t = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in batch.items()}
+    real, objs, boxes = t["imgs"], t["objs"].long(), t["boxes"]
+    with torch.no_grad():
+        obj_vecs, _, _ = model.acts_to_objs(objs, t["triplets"].long(),
+                                            t["actions"], boxes)
+    del model
+    torch.cuda.empty_cache()
+
+    # (a) one D step per variant, at the Config's widths.
+    variants = {
+        "MultiscaleDiscriminator": MultiscaleDiscriminator(
+            vocab, cfg.embedding_dim, cfg.num_D, cfg.ndf, cfg.n_layers_D,
+            cfg.norm_D, dtype),
+        "MultiscaleDiscriminatorT": MultiscaleDiscriminatorT(
+            T, cfg.num_D, cfg.ndf, cfg.n_layers_D, cfg.norm_D, dtype),
+        "AcCropDiscriminator": AcCropDiscriminator(
+            vocab, cfg.crop_size, dtype=dtype),
+    }
+    lines, step_ms, per_forward, runs = [], {}, {}, 3
+    for name, disc in variants.items():
+        disc = init_params(disc, 16).cuda()
+        opt = torch.optim.Adam(disc.parameters(), lr=cfg.learning_rate,
+                               betas=(cfg.beta1, 0.999))
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = d_step_loss(name, disc, real, fake, objs, boxes)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        KERNEL_LAUNCHES.reset()
+        PLAIN_CALLS.reset()
+        loss = step()
+        torch.cuda.synchronize()
+        launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+        want = 2 if name == "MultiscaleDiscriminator" else 0  # 2 forwards
+        if (launches, plain) != (want, 0):
+            raise AssertionError(f"{name}: {launches} kernel launches and "
+                                 f"{plain} plain calls in one D step")
+        bad = [n for n, p in disc.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if not np.isfinite(float(loss)) or bad:
+            raise AssertionError(f"{name}: loss {float(loss)}, non-finite "
+                                 f"or missing gradients {bad[:4]}")
+        per_forward[name] = launches // 2
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            loss = step()
+        torch.cuda.synchronize()
+        step_ms[name] = 1e3 * (time.perf_counter() - t0) / runs
+        peak = torch.cuda.max_memory_allocated()
+        busy = kernel_ms(step) / step_ms[name]
+        lines.append(f"{name} {step_ms[name]:.1f} ms per D step, peak "
+                     f"{peak / 2**30:.2f} GiB, busy {100 * busy:.1f}%, loss "
+                     f"{float(loss):.4f}, {per_forward[name]} rasterizer "
+                     f"kernel launches per forward, 0 plain calls")
+        del disc, opt
+        torch.cuda.empty_cache()
+    print(f"phase 16 (a) D steps at CATER {H}x{W}, the Config's widths "
+          f"(B={B} T={T} O={cfg.max_objects}, bf16, ndf={cfg.ndf}, "
+          f"num_D={cfg.num_D}, n_layers_D={cfg.n_layers_D}, "
+          f"embedding_dim={cfg.embedding_dim}, crop_size={cfg.crop_size}; "
+          f"real: seeded synthetic clips, fake: the seeded generator's; "
+          f"forward on both, hinge loss, backward, Adam; mean of {runs} "
+          f"after one checked step): " + "; ".join(lines), flush=True)
+
+    # (b) the card against the CPU at 64x64 in fp32.
+    print(f"phase 16 (b) card vs CPU, 64x64 fp32, max|diff| / rel-L2: "
+          f"{phase_latent_small(vocab)}", flush=True)
+
+    # (c) ConvEncoder at full width on the B*T frames.
+    enc = init_params(ConvEncoder(64, 256, dtype=dtype), 16).cuda()
+    x = fake.reshape(B * T, H, W, 3)
+
+    def encode():
+        enc.zero_grad(set_to_none=True)
+        mu, logvar = enc(x, train=True)
+        z = reparameterize(torch.Generator(mu.device).manual_seed(16), mu,
+                           logvar)
+        kld = kld_loss(mu.float(), logvar.float())
+        (kld + z.float().square().mean()).backward()
+        return z.detach(), kld.detach()
+
+    encode()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z, kld = encode()
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    bad = [n for n, p in enc.named_parameters()
+           if not bool(torch.isfinite(p.grad).all())]
+    if tuple(z.shape) != (B * T, 256) or not np.isfinite(float(kld)) or bad:
+        raise AssertionError(f"ConvEncoder: z {tuple(z.shape)}, KLD "
+                             f"{float(kld)}, non-finite gradients {bad[:4]}")
+    print(f"phase 16 (c) ConvEncoder nf=64 z_dim=256 bf16 on {B * T} frames "
+          f"of {H}x{W}: z {tuple(z.shape)}, KLD {float(kld):.4e}, forward + "
+          f"backward {enc_ms:.1f} ms (the second call), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del enc, z
+
+    # (d) MaskNet at mask_size 16 on the layout model's object vectors,
+    # then masks_to_layout to 256x256 per sample, both modes.
+    vecs = obj_vecs[:, -1].float()  # (B, O, gconv_dim), the last frame
+    mask_vecs = create_mask_vecs(
+        vecs, torch.Generator(vecs.device).manual_seed(16),
+        cfg.mask_noise_dim)
+    net = init_params(MaskNet(mask_vecs.shape[-1], 16), 16).cuda()
+    masks = net(mask_vecs, train=True)
+    obj_mask = remove_dummy_objects_mask(objs)
+    covered, total = 0, 0
+    with torch.no_grad():
+        for b in range(B):
+            box = boxes[b, -1]
+            args = (box, masks[b].detach(), H, W)
+            outs = [masks_to_layout(vecs[b], *args, obj_mask=obj_mask[b],
+                                    test_mode=m) for m in (False, True)]
+            eye = torch.eye(len(box), device=box.device)
+            onehot = masks_to_layout(eye, *args, obj_mask=obj_mask[b],
+                                     test_mode=True)
+            hard = masks_to_layout(eye, *args, obj_mask=obj_mask[b]) > 0.5
+            if not all(bool(torch.isfinite(o).all()) for o in outs) or \
+                    any(tuple(o.shape) != (H, W, vecs.shape[-1])
+                        for o in outs):
+                raise AssertionError("masks_to_layout: non-finite or shape")
+            # A composite: each pixel from at most one object, and every
+            # pixel some hard mask covers is claimed.
+            per_pixel = (onehot != 0).sum(-1)
+            if int(per_pixel.max()) > 1 or not torch.equal(
+                    per_pixel > 0, hard.any(-1)):
+                raise AssertionError("test mode is not a composite")
+            covered += int((per_pixel > 0).sum())
+            total += H * W
+    print(f"phase 16 (d) MaskNet(mask_size=16) on create_mask_vecs of the "
+          f"layout model's object vectors ({tuple(mask_vecs.shape)}), "
+          f"masks_to_layout to {H}x{W} per sample in train and test mode: "
+          f"finite; test mode a composite (each pixel from at most one "
+          f"object), {100 * covered / total:.1f}% of pixels claimed",
+          flush=True)
+    print(f"phase 16 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return per_forward["MultiscaleDiscriminator"], step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
@@ -1713,6 +2136,13 @@ def main():
         phase_eval(run_dir, tmp)
         modes = phase_modes(phase9)
         phase_backbone_iou(run_dir, tmp)
+    msd_per_forward, _ = phase_latent()
+    msd = timing["msd"]
+    print(f"phase 16 (e) the rasterizer at the MultiscaleDiscriminator's "
+          f"shape N=12 O=12 D=512 256x256 bf16 (phase 2): kernel "
+          f"{msd['ms']:.4f} ms, plain {msd['plain_ms']:.4f} ms, torch.bmm "
+          f"{msd['library_ms']:.4f} ms, bound {msd['bound_ms']:.4f} ms; "
+          f"{msd_per_forward} launch per forward")
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -1727,7 +2157,10 @@ def main():
         launches_per_train_step_cater=per_train_step_cater,
         **{f"launches_per_train_step_{k}": v for k, v in modes.items()},
         disc_shape="N=9 O=12 D=256 256x256 bf16",
-        **{f"disc_{k}": v for k, v in disc.items()})]}))
+        **{f"disc_{k}": v for k, v in disc.items()},
+        launches_per_msd_forward=msd_per_forward,
+        msd_shape="N=12 O=12 D=512 256x256 bf16",
+        **{f"msd_{k}": v for k, v in msd.items()})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ utils/logging.py, the `StepTimer`, eval/fid.py, the fidelity labels and
 evaluation stack's: eval/fid.py's `cached_features`, eval/prd.py,
 eval/action_metrics.py, eval/video_score.py's `load_clip` and
 scripts/port_torch_weights.py (tests/test_torch_eval_stack.py runs them
-against the originals); the
+against the originals); utils/graphs.py, the scene-graph algebra
+(test_graphs_algebra_matches runs it against the original); the
 CATER and Something-Else loaders' data files (byte for byte), constants and
 pure functions (tests/test_torch_datasets.py runs the loaders against the
 originals)."""
@@ -219,6 +220,7 @@ CODE_COPIES = {
     "port_torch_weights": (("scripts/port_torch_weights.py",
                             "ag2video_torch/scripts/port_torch_weights.py"),
                            None, ()),
+    "graphs": ("utils/graphs.py", None, ()),
 }
 
 
@@ -321,3 +323,28 @@ def test_smth_functions_match():
     meta = [{"name": f"{rng.randint(5)}.jpg", "k": i} for i in range(20)]
     assert t_smth.dedupe_boxes_metadata(meta) == \
         j_smth.dedupe_boxes_metadata(meta)
+
+
+def test_graphs_algebra_matches():
+    """The copy's functions on the same triplets give the same arrays,
+    `reduce_transitive_edges` from the same RandomState included."""
+    from ag2video_tpu.utils import graphs as jg
+    from ag2video_torch.utils import graphs as tg
+
+    vocab = get_vocab("cater")
+    pred = next(iter(vocab["pred_name_to_idx"].values()))
+    chain = [[0, pred, 1], [1, pred, 2], [2, pred, 3], [0, pred, 2],
+             [0, pred, 3], [1, pred, 3]]
+    for fn, args in (("triplets_to_minimal", ()),
+                     ("get_maximal_transitive_triplets", ()),
+                     ("get_minimal_and_transitive_triplets", ()),
+                     ("get_symmetric_triplets", ()),
+                     ("get_edge_antisymmetric_triplets", (vocab,))):
+        got, want = (getattr(m, fn)(chain, *args) for m in (tg, jg))
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    for p_keep in (0.0, 0.5, 1.0):
+        got, want = (m.reduce_transitive_edges(
+            chain, p_keep, np.random.RandomState(3)) for m in (tg, jg))
+        np.testing.assert_array_equal(got, want)
+    assert len(tg.reduce_transitive_edges(chain, 0.0)) == 3
+    assert len(tg.reduce_transitive_edges(chain, 1.0)) == 6

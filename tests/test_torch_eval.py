@@ -66,6 +66,30 @@ def test_box_transforms_match(rng, fn):
     np.testing.assert_allclose(got, want, rtol=0, atol=BOX_ATOL)
 
 
+def test_box_deltas_match(rng):
+    """apply / invert_box_transform and remove_small_boxes_mask; the
+    deltas of `apply` inverted give the deltas back."""
+    anchors = np.concatenate([rng.uniform(0.0, 1.0, (3, 5, 2)),
+                              rng.uniform(0.05, 0.6, (3, 5, 2))],
+                             -1).astype(np.float32)
+    deltas = rng.uniform(-0.5, 0.5, (3, 5, 4)).astype(np.float32)
+    boxes = np.array(j_boxes.apply_box_transform(jnp.asarray(anchors),
+                                                 jnp.asarray(deltas)))
+    got = t_boxes.apply_box_transform(torch.from_numpy(anchors),
+                                      torch.from_numpy(deltas)).numpy()
+    np.testing.assert_allclose(got, boxes, rtol=1e-6, atol=BOX_ATOL)
+    want = np.asarray(j_boxes.invert_box_transform(jnp.asarray(anchors),
+                                                   jnp.asarray(boxes)))
+    got = t_boxes.invert_box_transform(torch.from_numpy(anchors),
+                                       torch.from_numpy(boxes)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=BOX_ATOL)
+    np.testing.assert_allclose(got, deltas, rtol=1e-5, atol=1e-6)
+    boxes[0, 1, 2] = 0.0
+    np.testing.assert_array_equal(
+        t_boxes.remove_small_boxes_mask(torch.from_numpy(boxes), 0.1).numpy(),
+        np.asarray(j_boxes.remove_small_boxes_mask(jnp.asarray(boxes), 0.1)))
+
+
 def test_iou_xywh_matches(rng):
     p, g = box_pairs(rng)
     want = np.asarray(j_metrics.iou_xywh(jnp.asarray(p), jnp.asarray(g)))

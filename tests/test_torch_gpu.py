@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (marker `gpu`).
+"""Card-only tests of the port's CUDA kernels, and of an op whose CUDA
+backward the port works around (marker `gpu`).
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where JAX is absent; tests/conftest.py imports jax,
@@ -106,3 +107,30 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     wide = torch.randn(2, 3, 16, device=cuda)[..., ::2]
     with pytest.raises(ValueError):
         tr.boxes_to_layout_batch(wide, boxes, 8, mask=mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_avg_pool_3x3s2_gradient_matches_cpu(cuda, dtype):
+    """The multiscale discriminators' downsample: on CUDA, avg_pool2d's
+    backward with padding on a channels_last input is wrong (PyTorch 2.11),
+    so the port pools a contiguous NCHW copy."""
+    from ag2video_torch.models.layers import avg_pool_3x3s2
+
+    x0 = torch.randn(2, 3, 33, 40, 12, generator=torch.Generator()
+                     .manual_seed(4)).to(dtype)
+    r = torch.randn(2, 3, 17, 20, 12, generator=torch.Generator()
+                    .manual_seed(5)).to(dtype)
+    grads = []
+    for dev in ("cpu", cuda):
+        x = x0.to(dev).requires_grad_(True)
+        y = avg_pool_3x3s2(x)
+        grads.append(torch.autograd.grad((y * r.to(dev)).sum(), x)[0])
+    got, want = grads[1].cpu().double(), grads[0].double()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    else:
+        # bf16: each side rounds the window sums in its own order, and
+        # sums that cancel lose every bit, so the bound is on the whole:
+        # rel-L2 within a few bf16 roundings (the fault gives ~1).
+        assert float((got - want).norm() / want.norm()) <= 1e-2

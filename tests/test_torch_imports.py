@@ -62,8 +62,10 @@ def test_port_imports_without_jax():
     # losses, discriminator, vgg and train modules, the training run's
     # data, evaluation, checkpoint, telemetry and CLI modules, and the
     # evaluation stack's networks, metrics and CLIs, the rule baseline and
-    # the backbone-training and layout-IoU CLIs among them
-    assert n >= 68
+    # the backbone-training and layout-IoU CLIs among them, and the latent
+    # modules (grid sampling, crops, the discriminator variants, the VAE
+    # encoder, the graph algebra)
+    assert n >= 73
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
                  "train.trainer", "train.checkpoint", "data.synthetic",
                  "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
@@ -75,7 +77,9 @@ def test_port_imports_without_jax():
                  "eval.lpips", "eval.video_backbones", "eval.video_score",
                  "eval.prd", "eval.action_metrics", "scripts.evaluate",
                  "scripts.port_torch_weights", "models.rule_baseline",
-                 "scripts.train_backbone", "scripts.eval_iou"):
+                 "scripts.train_backbone", "scripts.eval_iou",
+                 "ops.sampling", "ops.crop", "models.discriminator_variants",
+                 "models.encoder", "utils.graphs"):
         assert f"ag2video_torch.{name}" in proc.stdout
 
 

@@ -95,6 +95,20 @@ def test_leading_dims_and_default_mask(rng):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+def test_one_sample_boxes_to_layout_matches_jax(rng):
+    """The single-sample name: (O, D) vecs, (O, 4) boxes, no leading dims."""
+    vecs, boxes, mask = _inputs(rng, 1, 5, 16)
+    for m in (None, mask[0]):
+        out = tr.boxes_to_layout(
+            torch.from_numpy(vecs[0]), torch.from_numpy(boxes[0]), 8, 12,
+            None if m is None else torch.from_numpy(m)).numpy()
+        ref = np.asarray(jr.boxes_to_layout(
+            jnp.asarray(vecs[0]), jnp.asarray(boxes[0]), 8, 12,
+            None if m is None else jnp.asarray(m)))
+        assert out.shape == (8, 12, 16)
+        np.testing.assert_allclose(out, ref, **TOL)
+
+
 def test_box_coverage_matches_jax(rng):
     _, boxes, mask = _inputs(rng, 2, 7, 1)
     boxes[1, 2, 2] = 0.0
