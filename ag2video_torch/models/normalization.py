@@ -39,6 +39,7 @@ from torch import nn
 
 from ag2video_torch.models.layers import (Conv, ConvTranspose, Dense,
                                           conv2d_nhwc, resize_nearest)
+from ag2video_torch.parallel.mesh import AllReduceSum, current_data_group
 
 
 def parse_spade_norm(config_text: str):
@@ -67,6 +68,20 @@ def fp32_stats(x: torch.Tensor, dims: Sequence[int]):
     return mean, var
 
 
+def global_stats(x: torch.Tensor, dims: Sequence[int], group):
+    """`fp32_stats` over the global batch of a data axis (parallel/mesh.py):
+    fp32 sum(x), sum(x^2) and the element count of each rank, summed over
+    `group` by one differentiable all-reduce, then the mean and flax's fast
+    variance max(0, E[x^2] - E[x]^2)."""
+    xf = x.float()
+    s1 = xf.sum(dims)
+    n = torch.full_like(s1, xf.numel() // s1.numel())
+    s1, s2, n = AllReduceSum.apply(
+        torch.stack([s1, (xf * xf).sum(dims), n]), group).unbind()
+    mean = s1 / n
+    return mean, torch.clamp(s2 / n - mean * mean, min=0.0)
+
+
 def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
               eps: float, weight: Optional[torch.Tensor],
               bias: Optional[torch.Tensor],
@@ -91,7 +106,10 @@ def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over the last axis: batch statistics over every
     other axis and a running-average update when `train`, the running
-    statistics otherwise."""
+    statistics otherwise. Inside a `parallel.data_scope` of more than one
+    rank, the batch statistics are the global batch's (`global_stats`),
+    as under the JAX package's data axis, so every rank moves its running
+    averages alike."""
 
     def __init__(self, features: int, use_scale: bool = True,
                  use_bias: bool = True, eps: float = 1e-5,
@@ -119,7 +137,12 @@ class BatchNorm(nn.Module):
         if not train:
             return normalize(x, self.running_mean, self.running_var,
                              self.eps, self.weight, self.bias, self.dtype)
-        mean, var = fp32_stats(x, tuple(range(x.dim() - 1)))
+        dims = tuple(range(x.dim() - 1))
+        group = current_data_group()
+        if group is None:
+            mean, var = fp32_stats(x, dims)
+        else:
+            mean, var = global_stats(x, dims, group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean

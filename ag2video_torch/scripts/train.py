@@ -18,9 +18,22 @@ decoded from the videos) over shard `--cache_worker_id` of
 Every training mode of the Config runs: teacher forcing or `--bp_prev 1`
 (the autoregressive loop), either flow decoder (`--flow_deconv`), fp32 or
 `--param_dtype bfloat16` parameters (fp32 masters in the Adams). Not here:
-`--debug_nans` (a JAX flag, not to port), and multi-host initialisation
-and the device mesh (`--mesh_model`; data parallel is ROADMAP.md's last
-bring-up item).
+`--debug_nans` (a JAX flag, not to port) and a model axis
+(`--mesh_model` > 1 raises under data parallel).
+
+Data parallel, one process per card:
+
+    torchrun --nproc_per_node N -m ag2video_torch.scripts.train ...
+
+(`--device cpu` runs the ranks on the CPU over gloo; on the cards they
+use NCCL). `parallel.init_distributed` joins the group from torchrun's
+variables before the first CUDA call; a process group that the caller
+already initialised is used as it is. Each rank reads its own slice of
+every split (`Loader(host_index=rank, host_count=world)`) and feeds
+`--batch_size` clips, so the global batch is batch_size x world, as under
+the JAX package's multi-host contract; the trainer trains over the data
+axis (`Trainer(mesh=...)`). The metrics stream, `run_args.json`,
+checkpoints and videos are rank 0's.
 """
 
 from __future__ import annotations
@@ -75,17 +88,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse `argv`, build the data, the trainer and the run directory, and
-    train -> the Trainer (None after --cache_data)."""
+    """Parse `argv`, join the process group torchrun describes (if any),
+    build the data, the trainer and the run directory, and train -> the
+    Trainer (None after --cache_data). A group joined here is left on the
+    way out."""
+    import torch.distributed as dist
+
     from ag2video_torch.config import Config
+    from ag2video_torch.parallel.mesh import init_distributed
+
+    args = build_parser().parse_args(argv)
+    cfg = Config.from_dict(vars(args))
+    # Before the first CUDA call; a no-op without torchrun's variables.
+    device = init_distributed(args.device)
+    try:
+        return _train(args, cfg, device or args.device)
+    finally:
+        if device is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device):
     from ag2video_torch.data.registry import Loader, get_dataset
+    from ag2video_torch.parallel.mesh import (make_mesh, process_count,
+                                              process_index)
     from ag2video_torch.train.checkpoint import latest_checkpoint
     from ag2video_torch.train.state import param_count
     from ag2video_torch.train.trainer import Trainer
     from ag2video_torch.utils.logging import MetricsWriter
-
-    args = build_parser().parse_args(argv)
-    cfg = Config.from_dict(vars(args))
 
     train_ds = get_dataset(cfg.dataset, "train", cfg)
     # Dataset cache pre-warmer: decode a 1/cache_workers shard, then return
@@ -99,11 +129,24 @@ def main(argv: Optional[Sequence[str]] = None):
     vocab = train_ds.vocab
     cfg = cfg.derive(vocab)  # reference init_args (data/args.py:184-207)
 
-    train_loader = Loader(train_ds, cfg, shuffle=True)
-    graph_loader = Loader(graph_ds, cfg, shuffle=True)
-    val_loader = Loader(val_ds, cfg, shuffle=cfg.shuffle_val, drop_last=False)
+    rank, world = process_index(), process_count()
+    lkw = dict(host_index=rank, host_count=world)
+    train_loader = Loader(train_ds, cfg, shuffle=True, **lkw)
+    graph_loader = Loader(graph_ds, cfg, shuffle=True, **lkw)
+    val_loader = Loader(val_ds, cfg, shuffle=cfg.shuffle_val, drop_last=False,
+                        **lkw)
 
-    trainer = Trainer(cfg, vocab, device=args.device)
+    mesh = None
+    if world > 1:
+        # The JAX CLI's check (the reference's GPU-divisibility assert,
+        # data/args.py:203-205), with the ranks for its devices.
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide over "
+                             f"the {world} ranks")
+        mesh = make_mesh(model=cfg.mesh_model)
+        log.info("data axis: rank %d of %d", mesh.rank, mesh.world)
+
+    trainer = Trainer(cfg, vocab, device=device, mesh=mesh)
     trainer.init(next(train_loader.epoch(0)))
     log.info("G params: %.2fM  D params: %.2fM",
              param_count(trainer.state.model) / 1e6,
@@ -120,8 +163,11 @@ def main(argv: Optional[Sequence[str]] = None):
         trainer.restore_checkpoint(path)
         log.info("resumed from %s at step %d", path, trainer.state.step)
 
-    writer = MetricsWriter(cfg.output_dir) if cfg.output_dir else None
-    if cfg.output_dir:
+    # Host-side writes are rank 0's (the JAX CLI's is_main).
+    is_main = rank == 0
+    writer = MetricsWriter(cfg.output_dir) if cfg.output_dir and is_main \
+        else None
+    if cfg.output_dir and is_main:
         cfg.save_run_args(cfg.output_dir, vocab)
     try:
         trainer.fit(train_loader, graph_loader, val_loader,

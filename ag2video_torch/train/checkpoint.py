@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ag2video_torch.config import Config
+from ag2video_torch.parallel.mesh import process_index
 
 log = logging.getLogger(__name__)
 
@@ -133,7 +134,14 @@ def save_checkpoint(output_dir: str, t: int, epoch: int, state,
     `counters.json` beside it; `epoch` goes to counters.json only, as in
     the JAX package: the state keeps its own). block=False returns once the host copy is
     made and leaves the write to the background writer. light=True saves
-    LIGHT_FIELDS only and writes the `itr_<t>.light` marker."""
+    LIGHT_FIELDS only and writes the `itr_<t>.light` marker.
+
+    Under torch.distributed, only rank 0 writes (every rank holds the same
+    replicated state, and concurrent writers into one directory race);
+    the other ranks return the path it writes, as the JAX package's
+    non-zero processes do."""
+    if process_index() != 0:
+        return checkpoint_path(output_dir, t)
     os.makedirs(output_dir, exist_ok=True)
     cfg.save_run_args(output_dir, vocab)
     path = checkpoint_path(output_dir, t)

@@ -26,10 +26,32 @@ generated frames), checkpoints (`train/checkpoint.py`), the metrics stream
 and step timing.
 
 `Trainer(cfg, vocab)` runs on the CUDA card and raises without one;
-`device="cpu"` runs on the CPU (the tests do). Not ported: data parallel,
-and two pieces of TPU plumbing, the host-RSS watchdog (`rss_watchdog_gb`)
-and the donation-miscompile warning (`donate_step`): both stay in the
-config and are ignored.
+`device="cpu"` runs on the CPU (the tests do). Not ported: two pieces of
+TPU plumbing, the host-RSS watchdog (`rss_watchdog_gb`) and the
+donation-miscompile warning (`donate_step`): both stay in the config and
+are ignored.
+
+Data parallel (`mesh=`, a `parallel.make_mesh` data axis; the JAX
+Trainer's `mesh=`): every rank holds the whole state (`replicate` at init
+and after a restore) and feeds its own slice of the global batch. Every
+forward runs inside `parallel.data_scope`, so train-mode BatchNorms take
+global-batch statistics; after each backward, one `allreduce_grads`
+averages that network's gradients before the finiteness check and the
+Adam, so the ranks take the same step. Every loss is averaged over the
+ranks (`allreduce_mean`) before the NaN check and the metrics: the skip is
+a global decision, as the JAX step's (one rank stepping while another
+restores would part their weights for good), and the metrics are
+global-batch means. `check_model` sums its statistics locally and reduces
+them once after its loop (two ranks' val slices may differ by a batch), and
+gathers the scorers' features in the split's order. Host-side writes
+(checkpoints, run_args.json, videos, traces) are rank 0's; the metrics
+writer is the caller's (the CLI gives rank 0 one).
+
+Why not DistributedDataParallel: `frozen` toggles `requires_grad` on D
+during the G step, which DDP does not allow once built; `graph_only`
+forwards reach a subset of G's parameters; `NormState.restore` rewinds
+buffers DDP would broadcast again. The JAX step reduces once per step
+too, which one explicit all-reduce per network does.
 """
 
 from __future__ import annotations
@@ -53,6 +75,11 @@ from ag2video_torch.losses.loss_model import (compute_discriminator_loss,
                                               compute_generator_loss,
                                               compute_graph_loss)
 from ag2video_torch.ops.metrics import iou_stats
+from ag2video_torch.parallel.mesh import (Mesh, allreduce_grads,
+                                          allreduce_mean,
+                                          allreduce_sum_array, data_scope,
+                                          gather_in_split_order,
+                                          process_index, replicate)
 from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.train.state import TrainState, create_train_state
 
@@ -99,19 +126,23 @@ DEADLINE_RC = 75
 
 class Trainer:
     def __init__(self, cfg: Config, vocab: Dict[str, Any],
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Mesh] = None):
         """device: None means the CUDA card, which raises without one;
-        "cpu" for the CPU."""
+        "cpu" for the CPU. mesh: the data axis to train over (None: this
+        process alone)."""
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA card is available; pass "
                                "device='cpu' to train on the CPU")
         self.cfg, self.vocab, self.device = cfg, vocab, device
+        self.mesh = mesh
         self.state: Optional[TrainState] = None
 
     # ------------------------------------------------------------------
     def init(self, sample_batch: Any = None) -> TrainState:
-        """Build the models and optimizers (seeded from cfg.seed). The
+        """Build the models and optimizers (seeded from cfg.seed; with a
+        mesh, replicated from rank 0 and checked equal on every rank). The
         sample batch, when given, is checked against the config's frame
         size."""
         if sample_batch is not None:
@@ -120,7 +151,32 @@ class Trainer:
                 raise ValueError(f"batch frames {(H, W)} vs config "
                                  f"image_size {self.cfg.image_size}")
         self.state = create_train_state(self.cfg, self.vocab, self.device)
+        self._replicate()
         return self.state
+
+    def _replicate(self) -> None:
+        """Rank 0's models and optimizer states on every rank (no mesh:
+        nothing)."""
+        if self.mesh is None:
+            return
+        st = self.state
+        for obj in (st.model, st.disc, st.vgg, st.opt_graph, st.opt_gen,
+                    st.opt_d):
+            if obj is not None:
+                replicate(obj, self.mesh)
+
+    def _reduce_grads(self, module: nn.Module) -> None:
+        """Average `module`'s gradients over the mesh (no mesh: nothing)."""
+        if self.mesh is not None:
+            allreduce_grads(module.parameters(), self.mesh)
+
+    def _global(self, losses: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The losses, detached, averaged over the mesh."""
+        if self.mesh is None:
+            return {k: v.detach() for k, v in losses.items()}
+        return dict(zip(losses, allreduce_mean(list(losses.values()),
+                                               self.mesh)))
 
     @property
     def skipped_nan(self) -> int:
@@ -150,11 +206,12 @@ class Trainer:
     def generator_backward(self, b: Dict[str, torch.Tensor]):
         """The G step's forward and backward, no update: the model in train
         mode, the generator losses against the frozen D. Leaves the
-        gradients in the model's `.grad` -> (losses, model outputs)."""
+        gradients (averaged over the mesh) in the model's `.grad` ->
+        (local losses, model outputs)."""
         st, cfg = self.state, self.cfg
         for p in st.model.parameters():
             p.grad = None
-        with frozen(st.disc):
+        with frozen(st.disc), data_scope(self.mesh):
             out = st.model(b["imgs"], b["objs"], b["triplets"],
                            b["actions"], b["boxes"], test_mode=False,
                            use_gt=True, train=True)
@@ -165,12 +222,14 @@ class Trainer:
 
             losses = compute_generator_loss(cfg, b, out, d_apply, st.vgg)
             losses["total_loss"].backward()
+        self._reduce_grads(st.model)
         return losses, out
 
     def discriminator_backward(self, b: Dict[str, torch.Tensor],
                                model_out: Dict[str, Any]):
         """One D step's forward and backward, no update: D in train mode on
-        the detached generated frames -> losses; gradients in D's `.grad`."""
+        the detached generated frames -> local losses; gradients (averaged
+        over the mesh) in D's `.grad`."""
         st = self.state
         for p in st.disc.parameters():
             p.grad = None
@@ -179,8 +238,11 @@ class Trainer:
             return st.disc(img, objs, boxes, actions_data, train=True,
                            img2=img2)
 
-        losses = compute_discriminator_loss(self.cfg, b, model_out, d_apply)
+        with data_scope(self.mesh):
+            losses = compute_discriminator_loss(self.cfg, b, model_out,
+                                                d_apply)
         losses["total_img_loss"].backward()
+        self._reduce_grads(st.disc)
         return losses
 
     def train_step(self, batch: Any) -> Dict[str, torch.Tensor]:
@@ -190,32 +252,34 @@ class Trainer:
 
         g_norms = NormState(st.model)
         g_losses, model_out = self.generator_backward(b)
+        g_losses = self._global(g_losses)
         g_ok = _finite(g_losses["total_loss"])
         if g_ok:
             st.opt_gen.step()
         else:
             g_norms.restore()
-        metrics = {f"G/{k}": v.detach() for k, v in g_losses.items()}
+        metrics = {f"G/{k}": v for k, v in g_losses.items()}
 
         d_ok = True
         for _ in range(max(self.cfg.D_steps_per_G, 1)):
             d_norms = NormState(st.disc)
-            d_losses = self.discriminator_backward(b, model_out)
+            d_losses = self._global(self.discriminator_backward(b, model_out))
             d_ok = d_ok and _finite(d_losses["total_img_loss"])
             if d_ok:
                 st.opt_d.step()
             else:
                 d_norms.restore()
-        metrics.update({f"D/{k}": v.detach() for k, v in d_losses.items()})
+        metrics.update({f"D/{k}": v for k, v in d_losses.items()})
 
         st.skipped_nan += int(not (g_ok and d_ok))
         st.step += 1
         return metrics
 
     def graph_loss(self, b: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        out = self.state.model(b["imgs"], b["objs"], b["triplets"],
-                               b["actions"], b["boxes"], test_mode=False,
-                               graph_only=True, train=True)
+        with data_scope(self.mesh):
+            out = self.state.model(b["imgs"], b["objs"], b["triplets"],
+                                   b["actions"], b["boxes"], test_mode=False,
+                                   graph_only=True, train=True)
         return compute_graph_loss(self.cfg, b, out["boxes_pred"])
 
     def graph_step(self, batch: Any) -> Dict[str, torch.Tensor]:
@@ -227,17 +291,19 @@ class Trainer:
             # --freeze_graph: the loss is reported, nothing is updated
             # (reference freeze_weights, train.py:60-64, 386-387).
             with torch.no_grad():
-                losses = self.graph_loss(b)
+                losses = self._global(self.graph_loss(b))
             return {f"Graph/{k}": v for k, v in losses.items()}
         for p in st.model.parameters():
             p.grad = None
         losses = self.graph_loss(b)
         losses["total_loss"].backward()
+        self._reduce_grads(st.model)
+        losses = self._global(losses)
         if _finite(losses["total_loss"]):
             st.opt_graph.step()
         else:
             st.skipped_nan += 1
-        return {f"Graph/{k}": v.detach() for k, v in losses.items()}
+        return {f"Graph/{k}": v for k, v in losses.items()}
 
     # ------------------------------------------------------------------
     def _eval_forward(self, b: Dict[str, torch.Tensor], use_gt: bool):
@@ -248,7 +314,7 @@ class Trainer:
         boxes = b["boxes"]
         boxes_in = boxes if use_gt else torch.cat(
             [boxes[:, :1], torch.zeros_like(boxes[:, 1:])], 1)
-        with torch.no_grad():
+        with torch.no_grad(), data_scope(self.mesh):
             out = self.state.model(b["imgs"], b["objs"], b["triplets"],
                                    b["actions"], boxes_in, test_mode=True,
                                    use_gt=use_gt, train=False)
@@ -291,10 +357,22 @@ class Trainer:
         `inception`, or `inception_randomnet` on random weights;
         `fidelity_score` (eval.backbone.FidelityScore) scores the generated
         frames, the ground-truth seed frames dropped, against the same
-        clips' real frames."""
+        clips' real frames.
+
+        With a mesh, each rank reads its own slice of the split and stops
+        after ceil(max_samples / world) samples; the IoU sums and the
+        presence counts are reduced once after the loop (the slices may
+        differ by a batch, so no collective runs per batch), and the
+        scorers' features are gathered in the split's order. An unshuffled
+        split that runs out before max_samples thus scores as one process
+        scores it; a longer one does not in general, since each rank stops
+        at a whole batch, and the clips scored differ from one process's.
+        The samples are the rank's own."""
         from ag2video_torch.eval.backbone import presence_labels
 
         max_samples = max_samples or self.cfg.num_val_samples
+        if self.mesh is not None:
+            max_samples = -(-max_samples // self.mesh.world)
         tot = np.zeros(4)
         samples = {}
         n_seen = 0
@@ -303,9 +381,11 @@ class Trainer:
         if fidelity_score is not None:
             fidelity_score.clean()
         ncond = self.cfg.n_frames_G - 1  # conditioning frames pass through
+        frames = self.cfg.frames_per_action  # per clip
         for batch in loader.epoch(0):
             b = self._batch(batch)
             imgs_pred, boxes_pred, stats = self._eval_forward(b, use_gt)
+            frames = imgs_pred.shape[1]
             tot += np.array([float(s) for s in stats])
             if inception_score is not None:
                 inception_score(imgs_pred.reshape(-1, *imgs_pred.shape[2:]))
@@ -330,6 +410,10 @@ class Trainer:
             n_seen += batch.imgs.shape[0]
             if n_seen >= max_samples:
                 break
+        if self.mesh is not None:
+            tot = allreduce_sum_array(tot, self.mesh, self.device)
+            self._gather_scores(inception_score, fidelity_score, frames,
+                                ncond)
         denom = max(tot[3], 1.0)
         # The layout rollout ignores boxes_in past the seed frame, so the
         # IoU triple is the same in both modes: only use_gt=False reports
@@ -349,6 +433,28 @@ class Trainer:
             mean_losses.update(fidelity_score.compute())
         return mean_losses, samples
 
+    def _gather_scores(self, inception_score, fidelity_score, T: int,
+                       ncond: int) -> None:
+        """Every rank's scorer state on every rank, in the split's order:
+        the Inception Score's T frames per clip, the fidelity score's T -
+        ncond generated and real frames per clip and its presence
+        counts."""
+        def gather(parts, rows):
+            x = np.concatenate(parts) if parts else np.zeros((0, 0),
+                                                             np.float32)
+            x = gather_in_split_order(x, rows, self.mesh, self.device)
+            return [x] if len(x) else []
+
+        if inception_score is not None:
+            inception_score._probs = gather(inception_score._probs, T)
+        if fidelity_score is not None:
+            fs = fidelity_score
+            fs._fake_feats = gather(fs._fake_feats, T - ncond)
+            fs._real_feats = gather(fs._real_feats, T - ncond)
+            fs._n_ok, fs._n_tot = (int(v) for v in allreduce_sum_array(
+                np.array([fs._n_ok, fs._n_tot], np.int64), self.mesh,
+                self.device))
+
     # ------------------------------------------------------------------
     def save_checkpoint(self, output_dir: str, t: int, epoch: int,
                         block: bool = True, light: bool = False) -> str:
@@ -357,8 +463,12 @@ class Trainer:
                                         light=light)
 
     def restore_checkpoint(self, path: str, for_inference: bool = False):
-        return ckpt_lib.restore_checkpoint(path, self.state, self.cfg,
-                                           for_inference=for_inference)
+        """Every rank reads the checkpoint; with a mesh, rank 0's state is
+        then replicated."""
+        state = ckpt_lib.restore_checkpoint(path, self.state, self.cfg,
+                                            for_inference=for_inference)
+        self._replicate()
+        return state
 
     # ------------------------------------------------------------------
     def _scorers(self, val_loader, inception_score=None):
@@ -413,12 +523,22 @@ class Trainer:
                 metrics_writer.write(t, {f"{tag}/{k}": v
                                          for k, v in m.items()})
             # Per-checkpoint videos (reference save_images, train.py:415,
-            # 422): gifs need imageio, so they are best-effort.
+            # 422): rank 0's; gifs need imageio, so they are best-effort.
+            if process_index() != 0:
+                continue
             try:
                 save_images(self.cfg.output_dir, t, samples,
                             dir_name="gt_val" if use_gt else "val")
             except Exception as e:
                 log.warning("save_images failed: %s", e)
+
+    def _past(self, deadline: float) -> bool:
+        """Whether the clock is past `deadline` here, or with a mesh on any
+        of its ranks."""
+        late = np.array([time.time() >= deadline], np.int64)
+        if self.mesh is not None:
+            late = allreduce_sum_array(late, self.mesh, self.device)
+        return bool(late[0])
 
     def fit(self, train_loader, graph_loader, val_loader=None,
             num_iterations: Optional[int] = None,
@@ -437,9 +557,11 @@ class Trainer:
         step it resumed from, each followed by both validation passes; logs
         every log_every steps; saves a full checkpoint at the end if an
         iteration ran. `profile_steps` traces steps [start+2, start+2+N)
-        into <output_dir>/profile. Past `wall_deadline` it saves a full
-        checkpoint (when there is an output_dir) and exits with DEADLINE_RC.
-        `rss_watchdog_gb` and `donate_step` (TPU plumbing) are ignored.
+        into <output_dir>/profile (rank 0's). Past `wall_deadline` it saves
+        a full checkpoint (when there is an output_dir) and exits with
+        DEADLINE_RC; with a mesh, every rank stops at the first logged step
+        at which any rank is past it. `rss_watchdog_gb` and `donate_step`
+        (TPU plumbing) are ignored.
         """
         from ag2video_torch.utils.profiling import (StepTimer, start_trace,
                                                     stop_trace)
@@ -457,7 +579,8 @@ class Trainer:
         t0 = time.time()
         last: Dict[str, Any] = {}
         t = start_t = int(self.state.step)
-        profile_at = (start_t + 2) if cfg.profile_steps else None
+        profile_at = (start_t + 2) if cfg.profile_steps \
+            and process_index() == 0 else None
         prof = None
         while t < num_iterations:
             if profile_at is not None and prof is None and t >= profile_at:
@@ -498,7 +621,7 @@ class Trainer:
                          {k: round(v, 4) for k, v in vals.items()})
                 if metrics_writer:
                     metrics_writer.write(t, vals)
-                if cfg.wall_deadline and time.time() >= cfg.wall_deadline:
+                if cfg.wall_deadline and self._past(cfg.wall_deadline):
                     log.error("wall deadline %.0f reached — %s, exiting "
                               "rc=%d for auto-resume", cfg.wall_deadline,
                               f"saving a FULL checkpoint at t={t}"

@@ -133,7 +133,27 @@ Phases, each printing one line (any failure raises and exits nonzero):
    and backward; (d) MaskNet (mask_size 16) on create_mask_vecs of the
    layout model's object vectors, then masks_to_layout to 256x256 per
    sample in both modes: finite, and the test mode a composite; (e) the
-   kernel at the msd shape, from phase 2.
+   kernel at the msd shape, from phase 2;
+17. data parallel (`ag2video_torch.parallel`): (a) two ranks that share the
+   card over gloo (`init_distributed(backend="gloo")`; NCCL refuses two
+   ranks on one device), each `Trainer(mesh=...)` at phase 9's
+   configuration (CATER vocabulary; B=3 per rank, global 6, each rank's
+   clips seeded synthetic clips from its own seed, `make_inputs`): 1 warm-up
+   and 3 iterations, finite losses, no skipped step, every parameter,
+   buffer and Adam state bit-equal across the ranks after every step
+   (checksums all-reduced), 2 rasterizer kernel launches and no plain call
+   per `train_step` on each rank; ms per iteration, ms and bytes of
+   `allreduce_grads` per step and peak memory, per rank; (b) phase 8's
+   small fp32 trainer at 64x64 on two ranks against one process on the
+   card over the global batch (rank 0's slice, then rank 1's): the
+   losses, each parameter's first-step gradient, the BN running statistics
+   after one `train_step` + `graph_step`, beside one process against
+   itself with its batch permuted; and the two-rank step with the kernel
+   against the two-rank step with the plain rasterizer; (c)
+   `scripts.train.main` under torchrun's variables at world 1 (NCCL), 3
+   iterations at 64x64 with a save at 2; (d) peak memory at 512x512: the
+   default `generate` at B=2, T=8 and one `train_step` at B=1, beside the
+   card's memory.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -142,11 +162,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import glob
 import io
 import json
 import os
 import pickle
+import socket
 import statistics
 import subprocess
 import sys
@@ -156,6 +178,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch import nn
 
 from ag2video_torch import Config, get_vocab
@@ -185,6 +209,9 @@ from ag2video_torch.ops._kernels import host_library, rasterize_library
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
+from ag2video_torch.parallel import init_distributed, make_mesh
+from ag2video_torch.parallel.mesh import (LAUNCH_VARS, replicas_differ,
+                                          state_tensors)
 from ag2video_torch.scripts.eval_fidelity import main as eval_fidelity_main
 from ag2video_torch.scripts.evaluate import _inception_pool3, _load_images
 from ag2video_torch.scripts.eval_iou import main as eval_iou_main
@@ -299,6 +326,30 @@ REF_STATE_REL_L2 = 3e-2
 # videos, 2,000 steps, 256 held-out videos).
 BACKBONE_ARGS = ["--n_videos", "1000", "--steps", "400",
                  "--n_val_videos", "128"]
+# Phase 17: two ranks on the card; (a) 3 timed iterations after 1 warm-up.
+DP_WORLD, DP_RUNS = 2, 3
+# (b) Two ranks against one process over the global batch, fp32: the sums
+# of the ranks' BatchNorm statistics against one pass's means, rounding
+# only, which the train-mode norms of the small trainer amplify (its SPADE
+# head normalises 2x2 maps of 4 clips). Bounds: the losses within
+# DP_LOSS_RTOL of max(|loss|, 1); the first step's gradients per parameter
+# as phase 8 holds them (compare_grads), the worst within DP_GRAD_WORST and
+# the median within DP_GRAD_MEDIAN; the BN running statistics within
+# DP_STATE_ATOL. Measured on the H100: losses 1.5e-7, gradients 3.5e-2
+# (the SPADE head's mlp_beta bias) and median 2.6e-3, BN statistics
+# 2.9e-6; one process against itself with its batch permuted 7.5e-8,
+# 4.1e-3 / 1.4e-3, 1.4e-6; the card against the CPU in phase 8 up to
+# 2.2e-2 per parameter.
+DP_LOSS_RTOL = 1e-5
+DP_GRAD_WORST, DP_GRAD_MEDIAN = 1e-1, 1e-2
+DP_STATE_ATOL = 1e-5
+# (c) the training CLI at world 1 over NCCL, phase 8's widths at 64x64.
+DP_CLI_ARGS = ["--dataset", "synthetic", "--num_iterations", "3",
+               "--checkpoint_every", "2", "--print_every", "1",
+               "--num_val_samples", "2"] + [
+    a for k, v in SMALL.items()
+    for a in (f"--{k}", ",".join(map(str, v)) if k == "image_size"
+              else str(v))]
 
 
 def check_close(name, got, ref, tol):
@@ -748,11 +799,12 @@ def compare_runs(name, got, want):
     return worst_rel, worst_p
 
 
-def compare_grads(name, got, want):
+def compare_grads(name, got, want, worst_bound=TRAIN_GRAD_REL_L2,
+                  median_bound=TRAIN_GRAD_MEDIAN):
     """The first train_step's gradients of two run_trainer runs, per
     parameter: ||got - want|| / max(||want||, ZERO_GRAD_REL * the largest
-    ||want|| of its network), the worst within TRAIN_GRAD_REL_L2 and the
-    median within TRAIN_GRAD_MEDIAN -> (worst, its parameter, median)."""
+    ||want|| of its network), the worst within `worst_bound` and the
+    median within `median_bound` -> (worst, its parameter, median)."""
     if set(got) != set(want):
         raise AssertionError(f"{name}: gradients of other parameters: "
                              f"{sorted(set(got) ^ set(want))[:4]}")
@@ -769,11 +821,11 @@ def compare_grads(name, got, want):
                          k))
     errs.sort()
     worst, median = errs[-1], errs[len(errs) // 2][0]
-    if not (worst[0] <= TRAIN_GRAD_REL_L2 and median <= TRAIN_GRAD_MEDIAN):
+    if not (worst[0] <= worst_bound and median <= median_bound):
         raise AssertionError(
             f"{name}: gradients differ by {worst[0]:.3e} rel-L2 ({worst[1]};"
-            f" bound {TRAIN_GRAD_REL_L2}), median {median:.3e} (bound "
-            f"{TRAIN_GRAD_MEDIAN})")
+            f" bound {worst_bound}), median {median:.3e} (bound "
+            f"{median_bound})")
     return worst[0], worst[1], median
 
 
@@ -2113,6 +2165,339 @@ def phase_latent():
     return per_forward["MultiscaleDiscriminator"], step_ms
 
 
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launch_env(rank, world, port):
+    """torchrun's variables for `rank` of `world` in this process."""
+    env = dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in LAUNCH_VARS}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def trainer_tensors(trainer):
+    """Every tensor of the training state: the models' parameters and
+    buffers, the Adams' parameters (fp32 masters) and moments."""
+    st = trainer.state
+    return [t for obj in (st.model, st.disc, st.opt_graph, st.opt_gen,
+                          st.opt_d) for t in state_tensors(obj)]
+
+
+def check_replicas(trainer, mesh, when):
+    differ = replicas_differ(trainer_tensors(trainer), mesh)
+    if differ:
+        raise AssertionError(f"rank {mesh.rank}: {len(differ)} state tensors "
+                             f"differ across the ranks {when}")
+
+
+@contextlib.contextmanager
+def timed_allreduce(record):
+    """Time every `allreduce_grads` of the trainer (synchronised on both
+    sides) into record["s"] and its bytes into record["bytes"]."""
+    import ag2video_torch.train.trainer as trainer_module
+
+    orig = trainer_module.allreduce_grads
+
+    def timed(params, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = orig(params, mesh)
+        torch.cuda.synchronize()
+        record["s"] += time.perf_counter() - t0
+        record["bytes"] += n
+        return n
+
+    trainer_module.allreduce_grads = timed
+    try:
+        yield record
+    finally:
+        trainer_module.allreduce_grads = orig
+
+
+def dp_full(mesh):
+    """Phase 17 (a) on this rank -> its figures."""
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **TRAIN_FULL).derive(vocab)
+    B, T = cfg.batch_size, cfg.frames_per_action
+    batch = make_inputs(cfg, vocab, B, T, seed=mesh.rank)
+    graph = make_inputs(cfg, vocab, B, 4 * cfg.frames_per_action_graph,
+                        seed=10 + mesh.rank)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, vocab, device="cuda:0", mesh=mesh)
+    trainer.init(batch)
+    setup_s = time.perf_counter() - t0
+    check_replicas(trainer, mesh, "after init")
+
+    def iteration():
+        m = trainer.train_step(batch)
+        m.update(trainer.graph_step(graph))
+        bad = [k for k, v in m.items() if not np.isfinite(float(v))]
+        if bad or trainer.skipped_nan:
+            raise AssertionError(f"rank {mesh.rank}: non-finite {bad}, "
+                                 f"{trainer.skipped_nan} skipped steps")
+        return m
+
+    iteration()
+    check_replicas(trainer, mesh, "after the warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    ms, ar = [], {"s": 0.0, "bytes": 0}
+    with timed_allreduce(ar):
+        for i in range(DP_RUNS):
+            t0 = time.perf_counter()
+            m = iteration()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            check_replicas(trainer, mesh, f"after step {i + 1}")
+    launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+    if launches != 2 * DP_RUNS or plain != 0:
+        raise AssertionError(f"rank {mesh.rank}: {launches} kernel launches "
+                             f"and {plain} plain calls in {DP_RUNS} "
+                             f"train_steps")
+    return dict(ms=ms, setup_s=setup_s, per_step=launches // DP_RUNS,
+                ar_ms=1e3 * ar["s"] / DP_RUNS,
+                ar_bytes=ar["bytes"] // DP_RUNS,
+                peak=torch.cuda.max_memory_allocated(),
+                last={k: float(v) for k, v in m.items()},
+                batch=cfg.batch_size)
+
+
+def dp_small_inputs(rank):
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **TRAIN_SMALL).derive(vocab)
+    B = cfg.batch_size
+    return (cfg, vocab,
+            make_inputs(cfg, vocab, B, cfg.frames_per_action, seed=rank),
+            make_inputs(cfg, vocab, B, 4 * cfg.frames_per_action_graph,
+                        seed=10 + rank))
+
+
+def dp_small_step(cfg, vocab, batch, graph, mesh=None, backend="auto"):
+    """One train_step + graph_step of the small trainer on the card ->
+    {metrics, grads (the train_step's), stats (BN running averages after
+    both), launches, plain}."""
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    trainer = Trainer(cfg, vocab, mesh=mesh)
+    trainer.init(batch)
+    trainer.set_rasterizer_backend(backend)
+    m = trainer.train_step(batch)
+    grads = named_leaves(trainer, "grad")
+    m.update(trainer.graph_step(graph))
+    torch.cuda.synchronize()
+    return dict(metrics={k: float(v) for k, v in m.items()}, grads=grads,
+                stats={k: v.cpu() for k, v in
+                       running_stats(trainer.state.model).items()},
+                launches=KERNEL_LAUNCHES.n, plain=PLAIN_CALLS.n)
+
+
+def dp_worker(rank, tmp, port):
+    """A rank of phase 17 (a) and (b): two ranks on card 0 over gloo."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with launch_env(rank, DP_WORLD, port):
+        init_distributed(device="cuda:0", backend="gloo")
+    try:
+        mesh = make_mesh()
+        out = dict(full=dp_full(mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, vocab, batch, graph = dp_small_inputs(rank)
+        out["small"] = {b: dp_small_step(cfg, vocab, batch, graph, mesh, b)
+                        for b in ("auto", "plain")}
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_compare(name, got, want):
+    """Losses, gradients and BN statistics of two dp_small_step runs ->
+    printable summary; raises past the DP_* bounds."""
+    loss = 0.0
+    for k, w in want["metrics"].items():
+        g = got["metrics"][k]
+        err = abs(g - w) / max(abs(w), 1.0)
+        if not np.isfinite(g) or err > DP_LOSS_RTOL:
+            raise AssertionError(f"{name}: {k} {g!r} vs {w!r}")
+        loss = max(loss, err)
+    worst, leaf, median = compare_grads(name, got["grads"], want["grads"],
+                                        DP_GRAD_WORST, DP_GRAD_MEDIAN)
+    state = max(float((got["stats"][k] - w).abs().max())
+                for k, w in want["stats"].items())
+    if not state <= DP_STATE_ATOL:
+        raise AssertionError(f"{name}: BN statistics differ by {state:.3e}")
+    return (f"{name}: losses {loss:.2e}, gradients worst {worst:.2e} "
+            f"({leaf}) median {median:.2e}, BN statistics {state:.2e}")
+
+
+def dp_cli(tmp):
+    """Phase 17 (c) -> printable summary."""
+    out = os.path.join(tmp, "dp_cli")
+    backends = []
+    orig_fit = Trainer.fit
+
+    def fit(self, *args, **kwargs):
+        backends.append((dist.get_backend(), dist.get_world_size()))
+        return orig_fit(self, *args, **kwargs)
+
+    Trainer.fit = fit
+    try:
+        with launch_env(0, 1, free_port()):
+            t0 = time.perf_counter()
+            trainer = train_main(DP_CLI_ARGS + ["--output_dir", out])
+            run_s = time.perf_counter() - t0
+    finally:
+        Trainer.fit = orig_fit
+    if backends != [("nccl", 1)] or dist.is_initialized():
+        raise AssertionError(f"the CLI trained over {backends}; group left "
+                             f"open: {dist.is_initialized()}")
+    recs = read_metrics(out)
+    check_finite("t=3", recs.get(3, {}), ("G/total_loss", "Graph/total_loss"))
+    if trainer.state.step != 3 or not all(
+            ckpt_lib.is_port_checkpoint(ckpt_lib.checkpoint_path(out, t))
+            for t in (0, 2, 3)):
+        raise AssertionError(f"step {trainer.state.step}; run directory "
+                             f"{sorted(os.listdir(out))}")
+    return (f"backend nccl, world 1; step 3, itr_0 / itr_2 / itr_3 and "
+            f"metrics.jsonl written; {run_s:.1f} s")
+
+
+def dp_peaks():
+    """Phase 17 (d): peak GiB at 512x512 of the default generate at B=2,
+    T=8 and of one train_step at B=1 -> printable summary."""
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", **dict(FULL, image_size=(512, 512))
+                 ).derive(vocab)
+    B, T = 2, cfg.frames_per_action
+    model = AG2VideoModel(cfg, vocab)
+    batch = make_inputs(cfg, vocab, B, T, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    imgs, _ = generate(model, batch)
+    torch.cuda.synchronize()
+    gen_peak = torch.cuda.max_memory_allocated()
+    if tuple(imgs.shape) != (B, T, 512, 512, 3) or \
+            not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"512x512 generate: {tuple(imgs.shape)}")
+    del model, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Config(dataset="cater", image_size=(512, 512), batch_size=1,
+                 compute_dtype="bfloat16").derive(vocab)
+    batch = make_inputs(cfg, vocab, 1, cfg.frames_per_action, seed=0)
+    trainer = Trainer(cfg, vocab)
+    trainer.init(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, v in m.items() if not np.isfinite(float(v))]
+    if bad or trainer.skipped_nan:
+        raise AssertionError(f"512x512 train_step: non-finite {bad}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    return (f"generate (factorized, B={B} T={T}, bf16) peak "
+            f"{gen_peak / 2**30:.2f} GiB; train_step (B=1, T="
+            f"{cfg.frames_per_action}, bf16) peak {train_peak / 2**30:.2f} "
+            f"GiB; the card holds {total / 2**30:.2f} GiB")
+
+
+def phase_dp():
+    """Phase 17 -> kernel launches per train_step on each rank."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(dp_worker, args=(tmp, free_port()),
+                                 nprocs=DP_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 17: the ranks hung")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        full = [r["full"] for r in ranks]
+        print(f"phase 17 (a) data parallel, {DP_WORLD} gloo ranks on one "
+              f"card, phase 9's configuration (CATER vocabulary, B="
+              f"{full[0]['batch']} per rank, global "
+              f"{DP_WORLD * full[0]['batch']}; 1 warm-up, {DP_RUNS} timed "
+              f"iterations; losses finite, no skipped step, every state "
+              f"tensor bit-equal across the ranks after init and each step): "
+              + "; ".join(
+                  f"rank {i}: " + ", ".join(f"{x:.1f}" for x in f["ms"])
+                  + f" ms per iteration, allreduce_grads {f['ar_ms']:.1f} ms "
+                  f"and {f['ar_bytes'] / 2**20:.1f} MiB per step, peak "
+                  f"{f['peak'] / 2**30:.2f} GiB, {f['per_step']} rasterizer "
+                  f"kernel launches per train_step, 0 plain calls, setup "
+                  f"{f['setup_s']:.1f} s" for i, f in enumerate(full))
+              + "; last losses " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(full[0]["last"].items())),
+              flush=True)
+
+        cfg, vocab, batch, graph = dp_small_inputs(0)
+        parts = [dp_small_inputs(r)[2:] for r in range(DP_WORLD)]
+
+        def single(order):
+            b, g = ({k: np.concatenate([parts[o][i][k] for o in order])
+                     for k in parts[0][i]} for i in (0, 1))
+            return dp_small_step(cfg, vocab, b, g)
+
+        one = single([0, 1])
+        permuted = single([1, 0])
+        for i, r in enumerate(ranks):
+            auto, plain = r["small"]["auto"], r["small"]["plain"]
+            if (auto["launches"], auto["plain"]) != (full[i]["per_step"], 0) \
+                    or plain["launches"] != 0 or plain["plain"] == 0:
+                raise AssertionError(f"rank {i}: kernel / plain calls "
+                                     f"{auto['launches']} / {auto['plain']} "
+                                     f"and {plain['launches']} / "
+                                     f"{plain['plain']}")
+        if ranks[0]["small"]["auto"]["metrics"] != \
+                ranks[1]["small"]["auto"]["metrics"]:
+            raise AssertionError("the ranks report other losses")
+        print(f"phase 17 (b) 64x64 fp32 small trainer, one train_step + "
+              f"graph_step, B={cfg.batch_size} per rank (bounds: losses "
+              f"{DP_LOSS_RTOL}, gradients {DP_GRAD_WORST} / "
+              f"{DP_GRAD_MEDIAN}, BN statistics {DP_STATE_ATOL}): "
+              + "; ".join([
+                  dp_compare("two ranks vs one process",
+                             ranks[0]["small"]["auto"], one),
+                  dp_compare("one process, permuted batch",
+                             permuted, one),
+                  dp_compare("two ranks, kernel vs plain",
+                             ranks[0]["small"]["auto"],
+                             ranks[0]["small"]["plain"])]), flush=True)
+        print(f"phase 17 (c) scripts.train.main under torchrun's variables: "
+              f"{dp_cli(tmp)}", flush=True)
+    print(f"phase 17 (d) 512x512: {dp_peaks()}", flush=True)
+    print(f"phase 17 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return full[0]["per_step"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
@@ -2143,6 +2528,7 @@ def main():
           f"{msd['ms']:.4f} ms, plain {msd['plain_ms']:.4f} ms, torch.bmm "
           f"{msd['library_ms']:.4f} ms, bound {msd['bound_ms']:.4f} ms; "
           f"{msd_per_forward} launch per forward")
+    per_step_dp = phase_dp()
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -2159,6 +2545,7 @@ def main():
         disc_shape="N=9 O=12 D=256 256x256 bf16",
         **{f"disc_{k}": v for k, v in disc.items()},
         launches_per_msd_forward=msd_per_forward,
+        launches_per_train_step_dp=per_step_dp,
         msd_shape="N=12 O=12 D=512 256x256 bf16",
         **{f"msd_{k}": v for k, v in msd.items()})]}))
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,8 @@ def test_port_imports_without_jax():
     # evaluation stack's networks, metrics and CLIs, the rule baseline and
     # the backbone-training and layout-IoU CLIs among them, and the latent
     # modules (grid sampling, crops, the discriminator variants, the VAE
-    # encoder, the graph algebra)
-    assert n >= 73
+    # encoder, the graph algebra), and data parallel (the parallel package)
+    assert n >= 75
     for name in ("losses.loss_model", "models.discriminator", "models.vgg",
                  "train.trainer", "train.checkpoint", "data.synthetic",
                  "data.registry", "eval.backbone", "eval.fid", "ops.boxes",
@@ -79,7 +79,8 @@ def test_port_imports_without_jax():
                  "scripts.port_torch_weights", "models.rule_baseline",
                  "scripts.train_backbone", "scripts.eval_iou",
                  "ops.sampling", "ops.crop", "models.discriminator_variants",
-                 "models.encoder", "utils.graphs"):
+                 "models.encoder", "utils.graphs", "parallel",
+                 "parallel.mesh"):
         assert f"ag2video_torch.{name}" in proc.stdout
 
 
