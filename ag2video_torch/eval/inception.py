@@ -21,7 +21,6 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ag2video_torch.eval.fid import inception_score_from_probs
@@ -29,6 +28,7 @@ from ag2video_torch.eval.layers import (Conv, avg_pool, eval_device,
                                         load_variables, max_pool)
 from ag2video_torch.models.layers import Dense
 from ag2video_torch.models.normalization import BatchNorm
+from ag2video_torch.ops.sampling import resize_bilinear  # noqa: F401
 from ag2video_torch.weights import read_asset
 
 DEFAULT_WEIGHTS = os.path.join(
@@ -225,15 +225,6 @@ def inception_v3(params=None, device=None) -> Tuple[InceptionV3, bool]:
     -> (model, random_init)."""
     return load_variables(InceptionV3(), params,
                           eval_device(device, "InceptionV3"))
-
-
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """jax.image.resize(method='bilinear') of (N, H, W, C): half-pixel
-    centres and, when downsampling, the triangle kernel widened to the
-    factor (antialiasing), as torch's antialiased bilinear weights it."""
-    y = F.interpolate(x.movedim(-1, 1), size=tuple(size), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.movedim(1, -1)
 
 
 class InceptionScore:

@@ -12,10 +12,8 @@ run (an `itr_<t>/` directory, train/checkpoint.py), or an `itr_<t>.npz` of
 flax variables exported from a JAX run's orbax checkpoint
 (torch_tools/export_run_weights.py). Its `generate` returns numpy arrays as the JAX session's does;
 `run_action_sweep` and `save_test_outputs` write the same file tree as the
-JAX session's methods, with two differences: `save_test_outputs` writes
-each `.pkl` before its GIF, and GIFs are best-effort. `utils.vis.save_gif`
-needs `imageio`; where it is missing a GIF is skipped and counted in
-`GIFS_SKIPPED`, and the first skip logs a warning that names it.
+JAX session's methods (`save_test_outputs` writes each `.pkl` before its
+GIF). The GIFs are the port's own (utils/gif.py), so no imageio is needed.
 """
 
 from __future__ import annotations
@@ -32,15 +30,11 @@ import torch
 from ag2video_torch.config import Config
 from ag2video_torch.inference import actions as action_lib
 from ag2video_torch.models.meta import AG2VideoModel
-from ag2video_torch.ops.rasterize import LaunchCount
 from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.utils.vis import plot_vid, save_gif, save_video_pickle
 from ag2video_torch.weights import from_flax, load_flax_npz
 
 log = logging.getLogger(__name__)
-
-# GIFs skipped because imageio is missing.
-GIFS_SKIPPED = LaunchCount()
 
 _DTYPES = {"imgs": torch.float32, "objs": torch.long, "boxes": torch.float32,
            "triplets": torch.long, "actions": torch.float32}
@@ -108,20 +102,6 @@ def generate(model: torch.nn.Module, batch: Any,
     if layout_only:
         return None, out["boxes_pred"]
     return out["imgs_pred"], out["boxes_pred"]
-
-
-def save_gif_best_effort(frames, path: str) -> Optional[str]:
-    """`save_gif`, or, without imageio, nothing: the skip is counted in
-    GIFS_SKIPPED and the first one logs a warning -> the path written or
-    None."""
-    try:
-        return save_gif(frames, path)
-    except ImportError as e:
-        if GIFS_SKIPPED.n == 0:
-            log.warning("GIFs need imageio (%s): skipping them; the .pkl "
-                        "outputs are written", e)
-        GIFS_SKIPPED.n += 1
-        return None
 
 
 def latest_weights(run_dir: str) -> str:
@@ -234,11 +214,10 @@ class GenerationSession:
             for rel, a in variants.items():
                 imgs_pred, boxes_pred = self.generate(batch, actions=a)
                 fn = os.path.join(out_dir, rel, f"{vid_id}.gif")
-                if save_gif_best_effort(plot_vid(imgs_pred[0], boxes_pred[0]),
-                                        fn):
-                    log.info("wrote %s", fn)
+                save_gif(plot_vid(imgs_pred[0], boxes_pred[0]), fn)
+                log.info("wrote %s", fn)
             gt_fn = os.path.join(out_dir, "gt_action", name, f"{vid_id}.gif")
-            save_gif_best_effort(plot_vid(np.asarray(batch.imgs)[0]), gt_fn)
+            save_gif(plot_vid(np.asarray(batch.imgs)[0]), gt_fn)
 
     def save_test_outputs(self, batch: Any, out_dir: str,
                           use_gt: bool = True) -> None:
@@ -254,5 +233,5 @@ class GenerationSession:
             n_real = int((objs[i, :, 0] != 0).sum())
             save_video_pickle(os.path.join(save_p, f"{vid_id}.pkl"),
                               imgs_pred[i], boxes_pred[i][:, :max(n_real, 1)])
-            save_gif_best_effort(plot_vid(imgs_pred[i]),
-                                 os.path.join(save_p, f"{vid_id}.gif"))
+            save_gif(plot_vid(imgs_pred[i]),
+                     os.path.join(save_p, f"{vid_id}.gif"))

@@ -17,9 +17,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ag2video_torch.eval.inception import resize_bilinear
 from ag2video_torch.models.layers import Dense, leaky_relu_02
 from ag2video_torch.models.normalization import NormConv
+from ag2video_torch.ops.sampling import resize_bilinear
 
 WIDTHS = (1, 2, 4, 8, 8, 8)
 

@@ -236,14 +236,20 @@ class SpectralWeight(nn.Module):
     def _l2n(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.rsqrt((x * x).sum() + self.eps)
 
-    def _normalize(self, weight: torch.Tensor, update_stats: bool):
+    def matrix(self, weight: torch.Tensor) -> torch.Tensor:
+        """The fp32 (-1, out) matrix flax's SpectralNorm normalises: the
+        flax kernel (a Dense kernel (in, out), a conv kernel HWIO, a
+        ConvTranspose kernel (kh, kw, in, out)) reshaped to (-1, out)."""
         if weight.dim() == 2:  # a Dense kernel: (out, in) -> flax's (in, out)
             value = weight.float().t()
         elif self.transposed:  # back to the flax kernel (kh, kw, in, out)
             value = weight.float().flip(2, 3).permute(2, 3, 0, 1)
         else:
             value = weight.float().permute(2, 3, 1, 0)
-        value = value.reshape(-1, value.shape[-1])  # HWIO -> (-1, out)
+        return value.reshape(-1, value.shape[-1])
+
+    def _normalize(self, weight: torch.Tensor, update_stats: bool):
+        value = self.matrix(weight)
         with torch.no_grad():
             vd = value.detach()
             v = self._l2n(self.u.float() @ vd.t())

@@ -6,12 +6,28 @@ port uses `F.grid_sample` on a channels-first view with the same semantics:
 torch's own, which the JAX function reproduces (align_corners True or
 False; 'zeros' padding, where a corner outside the image weighs zero, or
 'border' padding, where the coordinate is clamped to the image).
+
+`resize_bilinear` is `jax.image.resize(method='bilinear')` (InceptionV3's
+input and ConvEncoder's). It lives here, in a module that imports nothing
+of the package, so that `models` and `eval` can both import it in either
+order; `eval.inception` re-exports it.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(method='bilinear') of (N, H, W, C): half-pixel
+    centres and, when downsampling, the triangle kernel widened to the
+    factor (antialiasing), as torch's antialiased bilinear weights it."""
+    y = F.interpolate(x.movedim(-1, 1), size=tuple(size), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.movedim(1, -1)
 
 
 def linspace01(n: int, device=None) -> torch.Tensor:

@@ -15,9 +15,7 @@ rollouts at 2x / 4x the training clip length.
 The JAX CLI's arguments and JSON keys; `--device` (default: the CUDA
 card, which raises without one; `cpu` for the CPU) replaces its
 `--platform`. `--checkpoint` is a run directory (with run_args.json) or
-an `itr_*` path inside one. The horizon sweep's `--gifs_dir` GIFs need
-imageio; without it they are skipped and counted in
-`inference.generate.GIFS_SKIPPED`.
+an `itr_*` path inside one.
 """
 
 from __future__ import annotations
@@ -192,8 +190,7 @@ def run_horizon_sweep(sess, loader, num_samples, factors=(2, 4),
     Scored against the rule oracle at the same T', with the per-frame IoU
     trajectory."""
     from ag2video_torch.inference.actions import extend_horizon
-    from ag2video_torch.inference.generate import save_gif_best_effort
-    from ag2video_torch.utils.vis import plot_vid
+    from ag2video_torch.utils.vis import plot_vid, save_gif
 
     totals = {}
     per_frame = {}
@@ -213,9 +210,9 @@ def run_horizon_sweep(sess, loader, num_samples, factors=(2, 4),
                 for i in range(min(gifs_n, imgs_pred.shape[0])):
                     fn = os.path.join(gifs_dir, name,
                                       f"{b.video_ids[i]}.gif")
-                    if save_gif_best_effort(plot_vid(
-                            imgs_pred[i], np.clip(boxes_pred[i], 0, 1)), fn):
-                        log.info("wrote %s", fn)
+                    save_gif(plot_vid(imgs_pred[i],
+                                      np.clip(boxes_pred[i], 0, 1)), fn)
+                    log.info("wrote %s", fn)
         for name, b, acts in variants:
             expected = _rule(sess, b, acts)
             _, pred = sess.generate(b, actions=acts, layout_only=True)

@@ -9,9 +9,8 @@ without one; `cpu` for the CPU). `--checkpoint` is a run directory (with
 run_args.json) or an `itr_*` path inside one. Writes, under
 `<output_dir>/results_<dataset>/`, `test/<id>.pkl` ({'image', 'box'}) and
 `test/<id>.gif` for --save_test, and the action sweep's gifs for
---save_actions. Differences from the JAX CLI: the session loads without a
-batch (`sess.load()`), and GIFs are best-effort (they need imageio; the
-pkls do not): `inference.generate.GIFS_SKIPPED` counts the ones skipped.
+--save_actions. The one difference from the JAX CLI: the session loads
+without a batch (`sess.load()`).
 """
 
 from __future__ import annotations

@@ -180,12 +180,10 @@ class TrainState:
     skipped_nan: int = 0
 
 
-def create_train_state(cfg: Config, vocab: Dict[str, Any],
-                       device: torch.device) -> TrainState:
-    """Seeded models (the model from cfg.seed, D from cfg.seed + 1, a random
-    VGG from cfg.seed + 2) on `device`, their parameters in
-    cfg.param_dtype, and fresh optimizers."""
-    model = AG2VideoModel(cfg, vocab, device=device)
+def make_discriminator(cfg: Config, vocab: Dict[str, Any],
+                       device: torch.device) -> MultiscaleActionDiscriminator:
+    """The configured discriminator, seeded from cfg.seed + 1, on `device`
+    (fp32 parameters)."""
     disc = MultiscaleActionDiscriminator(
         vocab, embedding_dim=cfg.embedding_dim, gconv_dim=cfg.gconv_dim,
         gconv_hidden_dim=cfg.gconv_hidden_dim,
@@ -194,7 +192,16 @@ def create_train_state(cfg: Config, vocab: Dict[str, Any],
         n_layers_D=cfg.n_layers_D, ndf=cfg.ndf, norm_D=cfg.norm_D,
         dtype=getattr(torch, cfg.compute_dtype) if cfg.compute_dtype
         else None)
-    disc = init_params(disc, cfg.seed + 1).to(device)
+    return init_params(disc, cfg.seed + 1).to(device)
+
+
+def create_train_state(cfg: Config, vocab: Dict[str, Any],
+                       device: torch.device) -> TrainState:
+    """Seeded models (the model from cfg.seed, D from cfg.seed + 1, a random
+    VGG from cfg.seed + 2) on `device`, their parameters in
+    cfg.param_dtype, and fresh optimizers."""
+    model = AG2VideoModel(cfg, vocab, device=device)
+    disc = make_discriminator(cfg, vocab, device)
     to_param_dtype(model, cfg)
     to_param_dtype(disc, cfg)
     vgg_arrays = load_vgg19_arrays()

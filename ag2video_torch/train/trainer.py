@@ -523,7 +523,7 @@ class Trainer:
                 metrics_writer.write(t, {f"{tag}/{k}": v
                                          for k, v in m.items()})
             # Per-checkpoint videos (reference save_images, train.py:415,
-            # 422): rank 0's; gifs need imageio, so they are best-effort.
+            # 422): rank 0's; vis is best-effort.
             if process_index() != 0:
                 continue
             try:

@@ -1,9 +1,10 @@
 """Visualization artifacts (port of ag2video_tpu/utils/vis.py, held equal
 to it by tests/test_torch_copies.py): frames with boxes drawn, gifs, and the
 {'image','box'} pickle consumed by the LPIPS pair scorer, and the
-per-checkpoint validation videos (`save_images`). `imageio` is imported
-only inside `save_gif`, so nothing else here needs it; `save_images` writes
-gifs, so it needs it too (the training loop calls it best-effort)."""
+per-checkpoint validation videos (`save_images`). The JAX package writes
+its gifs with imageio; the port writes them itself (utils/gif.py: a fixed
+256-colour palette, so a frame reads back within gif.MAX_ERROR per
+channel), and needs no imageio."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from ag2video_torch.data.transforms import denormalize
+from ag2video_torch.utils.gif import write_gif
 
 
 def draw_boxes(frame: np.ndarray, boxes: np.ndarray,
@@ -51,10 +53,9 @@ def plot_vid(video: np.ndarray, boxes: Optional[np.ndarray] = None) -> list:
 
 
 def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 4) -> str:
+    """A looping gif of (H, W, 3) uint8 frames, each shown 1 / fps s."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    import imageio
-    imageio.mimsave(path, list(frames), duration=1000 / fps, loop=0)
-    return path
+    return write_gif(path, frames, fps)
 
 
 def save_video_pickle(path: str, video: np.ndarray, boxes: np.ndarray) -> str:

@@ -8,7 +8,7 @@ Phases, each printing one line (any failure raises and exits nonzero):
 1. the card's name and power limit (nvidia-smi), the builds of the kernel
    and of the host library (csrc/host.cpp, g++; not a device kernel), both
    started together, and which of PIL, pandas, cv2 and imageio import here
-   (information only: no phase needs them);
+   (information; phase 12 decodes GIFs with PIL);
 2. the box-rasterizer kernel against its plain PyTorch version at the
    shapes of KERNEL_SHAPES (fully masked frames must come out exactly
    zero), then kernel, plain, library (torch.bmm) and fill_ times at the
@@ -74,11 +74,19 @@ Phases, each printing one line (any failure raises and exits nonzero):
    beside phase 10's, `read_png`'s ms per frame, `clip_transform`'s ms per
    clip, peak memory and the phase's seconds;
 12. the CLIs on phase 10's run directory: `scripts.generate` (every
-   test/<id>.pkl finite, the first equal to the session's frames, GIFs
-   skipped where imageio is missing, counted), `scripts.eval_fidelity`
-   (every checkpoint's finite FID, into a directory that did not exist,
-   real-vs-real under noise-vs-real) and `scripts.summarize_metrics` (the
-   G, D and Graph losses);
+   test/<id>.pkl finite, the first equal to the session's frames),
+   `scripts.eval_fidelity` (every checkpoint's finite FID, into a directory
+   that did not exist, real-vs-real under noise-vs-real) and
+   `scripts.summarize_metrics` (the G, D and Graph losses); every GIF of
+   the generate CLI and of phase 10's validation passes written by the
+   port's encoder (utils/gif.py; no imageio) and decoded by PIL to exactly
+   the encoder's quantized frames; torch_tools/sigma_audit.py on the run's
+   newest checkpoint on the card (every SpectralWeight of the full-width G
+   and D audited, every value finite; the count, mean and max relative
+   error printed, with no bound on the error after 6 power iterations
+   from a random `u`); torch_tools/jsonl_to_tfevents.py on a copy of the
+   run's metrics.jsonl (the records read back equal its rows; a second
+   conversion skips);
 13. the evaluation stack: seeded state dicts in the pretrained layouts of
    InceptionV3, AlexNet/LPIPS, TSM-ResNet50 and ResNeXt3D-101
    (torch_tools/eval_assets.py) turned into assets in a temporary
@@ -153,7 +161,22 @@ Phases, each printing one line (any failure raises and exits nonzero):
    `scripts.train.main` under torchrun's variables at world 1 (NCCL), 3
    iterations at 64x64 with a save at 2; (d) peak memory at 512x512: the
    default `generate` at B=2, T=8 and one `train_step` at B=1, beside the
-   card's memory.
+   card's memory;
+18. the training trajectory: the 8 iterations (`train_step` +
+   `graph_step`, 64x64, an LR schedule that decays over the second half)
+   of torch_tools/data/reference_trajectory_64.npz on the card, in fp32
+   (TF32 off) and bf16 compute, from the port's seeded reference weights
+   with the kernel on: exactly 2 rasterizer kernel launches and no plain
+   call per `train_step`; every metric, learning rate, norm-state leaf,
+   parameter update and spectral kernel held to the JAX package's under
+   torch_tools/trajectory.py's bounds (each the larger of 4x the
+   reference's own spread and the one-step floor; a quantity whose bound
+   is 1 or more is unpinned and counted, not held; the quantities of its
+   KNOWN_GAPS are reported, not held), the worst and median of each
+   category beside their bounds; the sigma audit of the final state, the
+   port's and the JAX run's (from the file); the same iterations run again
+   on the card, against the first run (the card's own spread). cuDNN runs
+   its deterministic algorithms for the phase.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -194,7 +217,6 @@ from ag2video_torch.eval.lpips import LPIPS
 from ag2video_torch.eval.video_backbones import (BACKBONES,
                                                  load_backbone_params)
 from ag2video_torch.inference import GenerationSession, generate, make_inputs
-from ag2video_torch.inference.generate import GIFS_SKIPPED
 from ag2video_torch.losses.gan import multiscale_gan_loss
 from ag2video_torch.losses.perceptual import kld_loss
 from ag2video_torch.models import AG2VideoModel
@@ -223,11 +245,14 @@ from ag2video_torch.scripts.train_backbone import main as train_backbone_main
 from ag2video_torch.train import Trainer
 from ag2video_torch.train import checkpoint as ckpt_lib
 from ag2video_torch.train.state import reset_optimizers
+from ag2video_torch.utils import gif as gif_lib
+from ag2video_torch.utils import vis as vis_lib
 from ag2video_torch.utils.vis import save_video_pickle
 from ag2video_torch.weights import (flax_to_state_dict, init_params,
                                     transposed_keys)
 from torch_tools.cater_tree import make_tree
 from torch_tools.eval_assets import write_assets
+from torch_tools import jsonl_to_tfevents, sigma_audit, trajectory
 
 SMALL = dict(image_size=(64, 64), frames_per_action=3, max_objects=5,
              max_triplets=6, max_actions=2, embedding_dim=16, gconv_dim=16,
@@ -1314,7 +1339,9 @@ def phase_fit(phase9_ms, out):
         KERNEL_LAUNCHES.reset()
         PLAIN_CALLS.reset()
         t0 = time.perf_counter()
-        trainer = train_main(FIT_ARGS + ["--output_dir", out])
+        gifs = {}
+        with recorded_gifs(gifs):  # phase 12 decodes them
+            trainer = train_main(FIT_ARGS + ["--output_dir", out])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
@@ -1447,7 +1474,7 @@ def phase_fit(phase9_ms, out):
           f"({n_equal} tensors), next step losses within {worst:.2e} rel; "
           f"session vs live frames {e_sess:.3e}")
     return {"launches": launches // iters, "mean": mean, "p50": p50,
-            "loader_ms": synthetic_loader_ms}
+            "loader_ms": synthetic_loader_ms, "gifs": gifs}
 
 
 def tree_state(root):
@@ -1579,18 +1606,131 @@ def phase_cater(tmp, fit):
     return launches // iters
 
 
-def phase_clis(run_dir, tmp, imageio_ok):
-    """Phase 12: the generate, eval_fidelity and summarize_metrics CLIs on
-    phase 10's run directory; `imageio_ok`: whether imageio imports, so
-    that no GIF may be skipped."""
+GIF_WRITES = []   # (ms, bytes, pixels) of each GIF recorded_gifs saw
+
+
+@contextlib.contextmanager
+def recorded_gifs(record):
+    """Every GIF the port writes in the block (`utils.vis.save_gif`) also
+    puts {path: the frames quantized by the encoder's palette} in
+    `record`, and its write's ms, bytes and pixels in GIF_WRITES."""
+    write = vis_lib.write_gif
+
+    def recording(path, frames, fps=4):
+        record[os.path.abspath(path)] = gif_lib.quantize_frames(frames)
+        t0 = time.perf_counter()
+        out = write(path, frames, fps)
+        GIF_WRITES.append(((time.perf_counter() - t0) * 1e3,
+                           os.path.getsize(path),
+                           record[os.path.abspath(path)].size // 3))
+        return out
+
+    vis_lib.write_gif = recording
+    try:
+        yield record
+    finally:
+        vis_lib.write_gif = write
+
+
+def gif_line():
+    """The GIF writes so far: ms and bytes a write, bytes a pixel."""
+    ms, size, px = (np.array(c, float) for c in zip(*GIF_WRITES))
+    return (f"{np.median(ms):.1f} ms median, {ms.min():.1f}-{ms.max():.1f}, "
+            f"{np.median(size) / 1e3:.1f} kB median, "
+            f"{size.sum() / px.sum():.3f} bytes a pixel")
+
+
+def check_gifs(record, roots):
+    """Every GIF under `roots` was recorded, and PIL decodes each to exactly
+    its recorded frames -> the number checked."""
+    from PIL import Image
+
+    found = {os.path.abspath(p) for r in roots
+             for p in glob.glob(os.path.join(r, "**", "*.gif"),
+                                recursive=True)}
+    if found != set(record):
+        raise AssertionError(f"GIFs on disk and written differ: "
+                             f"{sorted(found ^ set(record))[:4]}")
+    for path, want in record.items():
+        with Image.open(path) as im:
+            frames = []
+            for i in range(im.n_frames):
+                im.seek(i)
+                frames.append(np.asarray(im.convert("RGB")))
+        if not np.array_equal(np.stack(frames), want):
+            raise AssertionError(f"{path}: PIL decodes other frames than "
+                                 f"the encoder's")
+    return len(record)
+
+
+def check_sigma_audit(run_dir, device=None):
+    """torch_tools/sigma_audit.py on the run's newest checkpoint (on the
+    card by default): every SpectralWeight the checkpoint holds audited,
+    every value finite -> (checkpoint name, G rows, D rows, its printed
+    lines)."""
+    itr = ckpt_lib.latest_checkpoint(run_dir)
+    data = ckpt_lib.load_state_file(itr)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        g, d = sigma_audit.audit(itr, device)
+    for name, rows, net in (("G", g, "model"), ("D", d, "disc")):
+        want = sorted(k for k in data[net] if k.endswith(".spectral.sigma"))
+        got = sorted(".".join(p.split("/")[:-2]) + ".spectral.sigma"
+                     for p, _, _ in rows)
+        if got != want or not all(np.isfinite([h, t]).all()
+                                  for _, h, t in rows):
+            raise AssertionError(f"sigma audit {name}: {len(got)} kernels "
+                                 f"of {len(want)}, or non-finite values")
+    return os.path.basename(itr), g, d, buf.getvalue()
+
+
+def check_tfevents_export(run_dir, tmp):
+    """torch_tools/jsonl_to_tfevents.py on a copy of the run's
+    metrics.jsonl: the records read back equal the rows (the numeric
+    columns but step and time, at the row's step and time, in float32);
+    a second conversion skips -> the number of records."""
+    out = os.path.join(tmp, "tfevents_export")
+    os.makedirs(out)
+    src = os.path.join(run_dir, "metrics.jsonl")
+    with open(src) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    with open(os.path.join(out, "metrics.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    with contextlib.redirect_stdout(io.StringIO()):
+        path = jsonl_to_tfevents.convert(out)
+        if jsonl_to_tfevents.convert(out) != path or \
+                len(glob.glob(os.path.join(out, "events.*"))) != 1:
+            raise AssertionError("a second conversion did not skip")
+    want = [(int(r["step"]), float(r["time"]), k, float(np.float32(v)))
+            for r in rows for k, v in r.items()
+            if k not in ("step", "time") and isinstance(v, (int, float))
+            and not isinstance(v, bool)]
+    got = jsonl_to_tfevents.read_events(path)
+    same = len(got) == len(want) and all(
+        g[:3] == w[:3] and (g[3] == w[3] or (np.isnan(g[3])
+                                             and np.isnan(w[3])))
+        for g, w in zip(got, want))
+    if not same:
+        raise AssertionError(f"tfevents export: {len(got)} records, "
+                             f"{len(want)} rows: {got[:3]} vs {want[:3]}")
+    return len(got)
+
+
+def phase_clis(run_dir, tmp, fit_gifs):
+    """Phase 12: the generate, eval_fidelity and summarize_metrics CLIs,
+    the sigma audit and the tfevents export on phase 10's run directory,
+    and every GIF of the generate CLI and of phase 10's validation passes
+    (`fit_gifs`, recorded by `recorded_gifs`) decoded."""
     from ag2video_torch.data.registry import Loader, get_dataset
 
     t_phase = time.perf_counter()
-    GIFS_SKIPPED.reset()
-    results = generate_main(["--checkpoint", run_dir, "--num_videos", "2",
+    gen_gifs = {}
+    with recorded_gifs(gen_gifs):
+        results = generate_main(["--checkpoint", run_dir, "--num_videos", "2",
                              "--output_dir", os.path.join(tmp, "generated")])
     pkls = sorted(glob.glob(os.path.join(results, "test", "*.pkl")))
     cfg, _ = Config.load_run_args(run_dir)
+    # validation GIFs: 4 for each video of the pass's first batch
+    n_val_gifs = 4 * min(4, cfg.batch_size)
     cfg = cfg.replace(batch_size=1)
     first = next(Loader(get_dataset(cfg.dataset, "test", cfg), cfg,
                         batch_size=1, shuffle=False,
@@ -1613,9 +1753,19 @@ def phase_clis(run_dir, tmp, imageio_ok):
     del session
     e_gen = check_close("generate's pkl vs the session", torch.from_numpy(
         image), torch.from_numpy(want[0]), SESSION_TOL)
-    if imageio_ok and GIFS_SKIPPED.n:
-        raise AssertionError(f"{GIFS_SKIPPED.n} GIFs skipped with imageio")
-    gifs_skipped = GIFS_SKIPPED.n
+    n_gen = check_gifs(gen_gifs, [results])
+    n_fit = check_gifs(fit_gifs, [os.path.join(run_dir, "gt_val"),
+                                  os.path.join(run_dir, "val")])
+    # Each validation pass (use_gt, no_use_gt) at t=0 and t=3; the test
+    # GIFs and, per action builder (converge, swap), 4 sweep GIFs.
+    if n_fit != n_val_gifs * 2 * 2 or n_gen != len(pkls) + 4 * 2:
+        raise AssertionError(f"{n_gen} generate GIFs, {n_fit} validation "
+                             f"GIFs")
+    t0 = time.perf_counter()
+    itr, g_rows, d_rows, audit_lines = check_sigma_audit(run_dir)
+    audit_s = time.perf_counter() - t0
+    errs = sigma_audit.rel_errors(g_rows + d_rows)
+    n_events = check_tfevents_export(run_dir, tmp)
 
     fid_out = os.path.join(tmp, "new_dir", "fidelity.json")
     if os.path.exists(os.path.dirname(fid_out)):
@@ -1648,10 +1798,20 @@ def phase_clis(run_dir, tmp, imageio_ok):
         if not summary.get(k) or not all(np.isfinite(v)
                                          for v in summary[k].values()):
             raise AssertionError(f"summarize_metrics: {k} {summary.get(k)}")
+    print(f"phase 12 sigma audit of {itr} (torch_tools/sigma_audit.py, "
+          f"{audit_s:.1f} s): " + " | ".join(
+              ln.strip() for ln in audit_lines.splitlines()
+              if ln.startswith(("G:", "D:", "ALL:"))))
     print(f"phase 12 CLIs on phase 10's run: generate wrote {len(pkls)} "
           f"pkls of {want_shape} finite frames, the first within "
-          f"{e_gen:.3e} of the session's use_gt frames, GIFS_SKIPPED "
-          f"{gifs_skipped} (imageio {'imports' if imageio_ok else 'missing'});"
+          f"{e_gen:.3e} of the session's use_gt frames; GIFs written and "
+          f"decoded by PIL to the encoder's frames exactly: {n_gen} of "
+          f"generate, {n_fit} of fit's validation, 0 skipped (each write "
+          f"{gif_line()}); sigma audit "
+          f"of {itr}: {len(g_rows)} + {len(d_rows)} SpectralWeights, rel "
+          f"err mean {np.mean(errs):.2%} max {np.max(errs):.2%}, all "
+          f"finite; tfevents export of metrics.jsonl: {n_events} records "
+          f"equal to its rows, a second conversion skipped;"
           f" eval_fidelity ({fid_s:.1f} s) FID " + ", ".join(
               f"itr_{t} {r['fidelity_fid']:.3f}"
               for t, r in sorted(rows.items()))
@@ -2498,13 +2658,78 @@ def phase_dp():
     return full[0]["per_step"]
 
 
+def audit_line(rows):
+    errs = sigma_audit.rel_errors(rows)
+    return (f"{len(rows)} kernels, rel err mean {np.mean(errs):.2%} max "
+            f"{np.max(errs):.2%}")
+
+
+def phase_trajectory():
+    """Phase 18: the reference file's 8 training iterations on the card
+    (the kernel on, TF32 off, cuDNN's deterministic algorithms), per
+    compute dtype, held to the JAX package's (torch_tools/trajectory.py),
+    then run again to show the card's own spread -> {dtype: kernel
+    launches per train_step}."""
+    t_phase = time.perf_counter()
+    ref = trajectory.load_reference()
+    K = len(ref["train_seeds"])
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             matmul.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        per_step = {dtype: _trajectory(ref, K, dtype)
+                    for dtype in trajectory.DTYPES}
+    finally:
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         matmul.allow_tf32) = saved
+    print(f"phase 18 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return per_step
+
+
+def _trajectory(ref, K, dtype):
+    """Phase 18 for one compute dtype -> kernel launches per train_step."""
+    t0 = time.perf_counter()
+    KERNEL_LAUNCHES.reset()
+    PLAIN_CALLS.reset()
+    port = trajectory.run_port(ref, dtype, None)  # the card
+    torch.cuda.synchronize()
+    launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+    run_s = time.perf_counter() - t0
+    if next(port["trainer"].state.model.parameters()).device.type != "cuda":
+        raise AssertionError("the trajectory's trainer is not on the card")
+    if launches != 2 * K or plain != 0:
+        raise AssertionError(f"trajectory {dtype}: {launches} kernel "
+                             f"launches, {plain} plain calls in {K} "
+                             f"train_steps")
+    report = trajectory.check(ref, dtype, port)
+    st = port["trainer"].state
+    jax_rows = trajectory.reference_sigma_rows(ref, dtype)
+    again = trajectory.run_port(ref, dtype, None)
+    print(f"phase 18 trajectory, {dtype} compute ({K} iterations of "
+          f"train_step + graph_step at 64x64 against "
+          f"reference_trajectory_64.npz, {run_s:.1f} s): rasterizer kernel "
+          f"launches {launches // K} per train_step, plain calls {plain}; "
+          f"bounds max({trajectory.SPREAD_FACTOR:g} x the reference's own "
+          f"spread, floor {trajectory.FLOORS[dtype]}): "
+          f"{trajectory.format_report(report, dtype)}; sigma audit after "
+          f"iteration {K}: port G "
+          f"{audit_line(sigma_audit.spectral_rows(st.model))}, D "
+          f"{audit_line(sigma_audit.spectral_rows(st.disc))}; JAX G "
+          f"{audit_line(jax_rows['G'])}, D {audit_line(jax_rows['D'])}; "
+          f"the same iterations again on the card against the first run: "
+          f"{trajectory.self_difference(port, again)}", flush=True)
+    return launches // K
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
                          "card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    found = phase_card()
+    phase_card()
     timing = phase_kernel()
     phase_grad()
     phase_small_model()
@@ -2517,7 +2742,7 @@ def main():
         run_dir = os.path.join(tmp, "run")
         fit = phase_fit(phase9["ms"], run_dir)
         per_train_step_cater = phase_cater(tmp, fit)
-        phase_clis(run_dir, tmp, found["imageio"])
+        phase_clis(run_dir, tmp, fit["gifs"])
         phase_eval(run_dir, tmp)
         modes = phase_modes(phase9)
         phase_backbone_iou(run_dir, tmp)
@@ -2529,6 +2754,7 @@ def main():
           f"{msd['library_ms']:.4f} ms, bound {msd['bound_ms']:.4f} ms; "
           f"{msd_per_forward} launch per forward")
     per_step_dp = phase_dp()
+    per_step_trajectory = phase_trajectory()
     disc = timing["disc"]
     print(json.dumps({"kernels": [dict({
         "name": "rasterize",
@@ -2546,6 +2772,8 @@ def main():
         **{f"disc_{k}": v for k, v in disc.items()},
         launches_per_msd_forward=msd_per_forward,
         launches_per_train_step_dp=per_step_dp,
+        **{f"launches_per_train_step_trajectory_{k}": v
+           for k, v in per_step_trajectory.items()},
         msd_shape="N=12 O=12 D=512 256x256 bf16",
         **{f"msd_{k}": v for k, v in msd.items()})]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """The port's training and generation CLIs on the CPU at 32x32: the
 training CLI on a fabricated CATER tree (PNG cache written without PIL) and
-its `--cache_data` pre-warmer; `scripts.generate`'s pkls, equal to the
-session's frames, and its GIFs skipped and counted without imageio
-(tests/test_torch_eval_cli.py: the scoring and summary CLIs)."""
+its `--cache_data` pre-warmer, and its validation GIFs written without
+imageio; `scripts.generate`'s pkls, equal to the session's frames, and its
+GIFs, written without imageio and read back by PIL as the session's frames
+in the GIF's palette (tests/test_torch_eval_cli.py: the scoring and summary
+CLIs)."""
 
+import glob
 import json
-import logging
 import os
 import pickle
 import sys
@@ -17,7 +19,8 @@ import torch
 from ag2video_torch.config import Config
 from ag2video_torch.data.registry import Loader, get_dataset
 from ag2video_torch.inference import GenerationSession
-from ag2video_torch.inference.generate import GIFS_SKIPPED
+from ag2video_torch.utils.gif import quantize_frames
+from ag2video_torch.utils.vis import plot_vid
 from ag2video_torch.scripts import generate as generate_cli
 from ag2video_torch.scripts import train as train_cli
 from torch_tools.cater_tree import make_tree
@@ -59,11 +62,29 @@ def cater_env(tmp_path_factory):
 def cater_run(cater_env, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("cater_run"))
     # Without imageio, as on a machine that lacks it: the validation gifs
-    # are skipped with a warning and the run goes on.
+    # (4 per video, 2 videos, both passes at t=0) are written all the same.
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(sys.modules, "imageio", None)
         trainer = train_cli.main(CATER_ARGS + ["--output_dir", out])
+    for d in ("gt_val", "val"):
+        gifs = glob.glob(os.path.join(out, d, "itr_0", "*.gif"))
+        assert len(gifs) == 4 * 2, (d, gifs)
+        for path in gifs:
+            frames = read_gif(path)
+            assert frames.shape[1:] == (32, 32, 3), (path, frames.shape)
     return out, trainer
+
+
+def read_gif(path):
+    """The frames PIL decodes from a GIF, (T, H, W, 3) uint8."""
+    from PIL import Image
+
+    frames = []
+    with Image.open(path) as im:
+        for i in range(im.n_frames):
+            im.seek(i)
+            frames.append(np.asarray(im.convert("RGB")))
+    return np.stack(frames)
 
 
 def read_metrics(run_dir):
@@ -106,7 +127,6 @@ def test_cater_training_run_and_cache_data(cater_env, cater_run):
 
 def test_generate_cli_writes_the_session_frames(cater_run, tmp_path):
     run, _ = cater_run
-    GIFS_SKIPPED.reset()
     out = generate_cli.main(["--checkpoint", run, "--num_videos", "2",
                              "--save_actions", "0", "--device", "cpu",
                              "--output_dir", str(tmp_path)])
@@ -130,21 +150,22 @@ def test_generate_cli_writes_the_session_frames(cater_run, tmp_path):
     with open(os.path.join(out, "test", f"{first.video_ids[0]}.pkl"),
               "rb") as f:
         np.testing.assert_array_equal(pickle.load(f)["image"], imgs[0])
-    assert GIFS_SKIPPED.n == 0
+    np.testing.assert_array_equal(
+        read_gif(os.path.join(out, "test", f"{first.video_ids[0]}.gif")),
+        quantize_frames(plot_vid(imgs[0])))
 
 
-def test_generate_cli_skips_gifs_without_imageio(cater_run, tmp_path,
-                                                 monkeypatch, caplog):
+def test_generate_cli_writes_gifs_without_imageio(cater_run, tmp_path,
+                                                  monkeypatch):
     run, _ = cater_run
     monkeypatch.setitem(sys.modules, "imageio", None)  # import fails
-    GIFS_SKIPPED.reset()
-    with caplog.at_level(logging.WARNING):
-        out = generate_cli.main(["--checkpoint", run, "--num_videos", "1",
-                                 "--device", "cpu",
-                                 "--output_dir", str(tmp_path)])
-    files = [f for _, _, fs in os.walk(out) for f in fs]
-    assert files and all(f.endswith(".pkl") for f in files)
+    out = generate_cli.main(["--checkpoint", run, "--num_videos", "1",
+                             "--device", "cpu",
+                             "--output_dir", str(tmp_path)])
+    gifs = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs
+            if f.endswith(".gif")]
     # per builder (converge, swap): 3 variants and the GT clip; the test gif
-    assert GIFS_SKIPPED.n == 2 * 4 + 1
-    assert len([r for r in caplog.records
-                if "imageio" in r.getMessage()]) == 1
+    assert len(gifs) == 2 * 4 + 1
+    for path in gifs:
+        frames = read_gif(path)
+        assert frames.shape[0] > 1 and frames.shape[1:] == (32, 32, 3)

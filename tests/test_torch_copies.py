@@ -143,10 +143,35 @@ def test_saved_artifacts_match(rng, tmp_path):
         d = tmp_path / name / "sub"
         files[name] = (vis.save_gif(vis.plot_vid(video), str(d / "a.gif")),
                        vis.save_video_pickle(str(d / "a.pkl"), video, boxes))
-    for got, want in zip(files["torch"], files["jax"]):
-        assert os.path.getsize(got) == os.path.getsize(want)
-    with open(files["torch"][0], "rb") as g, open(files["jax"][0], "rb") as w:
+    # The pkls are byte for byte the same. The gifs are not: the JAX
+    # package's imageio picks a palette per file, the port's encoder
+    # (utils/gif.py) has a fixed one. Both hold the same frames at the same
+    # size, 250 ms apart, looping; the port's read back as its palette's
+    # nearest colours, within gif.MAX_ERROR of the frames, and so of the
+    # JAX package's gif, frame by frame, within gif.MAX_ERROR plus the JAX
+    # gif's own error (measured: 0, as a 16x16 frame has at most 256
+    # colours and imageio gives each frame a palette of its own).
+    import imageio.v3 as iio
+
+    from ag2video_torch.utils import gif
+
+    with open(files["torch"][1], "rb") as g, open(files["jax"][1], "rb") as w:
         assert g.read() == w.read()
+    frames = np.stack(t_vis.plot_vid(video))
+    decoded = {k: iio.imread(v[0], index=None)[..., :3]
+               for k, v in files.items()}
+    assert decoded["torch"].shape == decoded["jax"].shape == frames.shape
+    for k, v in files.items():
+        meta = iio.immeta(v[0])
+        assert meta["duration"] == 250 and meta["loop"] == 0, (k, meta)
+    np.testing.assert_array_equal(decoded["torch"],
+                                  gif.quantize_frames(frames))
+    assert np.abs(decoded["torch"].astype(int) - frames).max() <= \
+        gif.MAX_ERROR
+    jax_error = 0
+    assert np.abs(decoded["jax"].astype(int) - frames).max() <= jax_error
+    assert np.abs(decoded["torch"].astype(int) - decoded["jax"]).max() <= \
+        gif.MAX_ERROR + jax_error
     with open(files["torch"][1], "rb") as f:
         got = pickle.load(f)
     np.testing.assert_array_equal(got["image"], video)

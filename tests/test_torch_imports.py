@@ -1,13 +1,15 @@
 """The port runs where JAX is absent: every ag2video_torch module (the
-training run's, the evaluation stack's and the CLIs' among them) and
-chip_smoke.py import with jax,
+training run's, the evaluation stack's and the CLIs' among them),
+chip_smoke.py and the run tools' twins (torch_tools/{sigma_audit,
+jsonl_to_tfevents,trajectory}.py) import with jax,
 flax and the JAX package itself (ag2video_tpu) blocked, and with PIL,
 pandas, cv2 and imageio blocked too (a machine may lack them; they are
 imported only inside the functions that need them), and a CPU call of the
 rasterizer launches no kernel. The CATER training path (a PNG cache written
 and read, `clip_transform`'s default branch) runs with those four blocked,
-and the branches that need PIL say so. chip_smoke.py refuses to run
-without a card and prints no result."""
+and the branches that need PIL say so. Each module also imports as a
+process's first import of the package (an import cycle shows only in that
+order). chip_smoke.py refuses to run without a card and prints no result."""
 
 import os
 import shutil
@@ -33,6 +35,9 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for name in ("sigma_audit", "jsonl_to_tfevents", "trajectory"):
+    importlib.import_module("torch_tools." + name)
+    print("TOOL", name)
 
 import torch
 from ag2video_torch.ops import rasterize as tr
@@ -52,6 +57,34 @@ def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=cwd, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
+
+
+FIRST_IMPORTS = r"""
+import importlib, pkgutil, sys, traceback
+import torch  # once: each module below is then the package's first import
+import ag2video_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    ag2video_torch.__path__, "ag2video_torch."))
+failed = []
+for name in names:
+    for m in [m for m in sys.modules if m.split(".")[0] == "ag2video_torch"]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+    except Exception:
+        failed.append(name + ": " + traceback.format_exc().splitlines()[-1])
+print("FAILED", len(failed))
+print("\n".join(failed))
+print("IMPORTED", len(names) - len(failed), "OF", len(names))
+"""
+
+
+def test_each_module_imports_first():
+    proc = _run(["-c", FIRST_IMPORTS], REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    failed = proc.stdout.split("FAILED")[1].split("IMPORTED")[0].split()
+    assert failed[0] == "0", proc.stdout.split("FAILED")[1]
+    assert int(proc.stdout.split("OF")[1]) >= 75
 
 
 def test_port_imports_without_jax():
@@ -80,8 +113,11 @@ def test_port_imports_without_jax():
                  "scripts.train_backbone", "scripts.eval_iou",
                  "ops.sampling", "ops.crop", "models.discriminator_variants",
                  "models.encoder", "utils.graphs", "parallel",
-                 "parallel.mesh"):
+                 "parallel.mesh", "utils.gif"):
         assert f"ag2video_torch.{name}" in proc.stdout
+    # the run tools' twins and the trajectory check, without JAX
+    for name in ("sigma_audit", "jsonl_to_tfevents", "trajectory"):
+        assert f"TOOL {name}" in proc.stdout
 
 
 CATER_WITHOUT_PIL = BLOCKED_IMPORTS.split("import ag2video_torch")[0] + r"""
