@@ -250,10 +250,11 @@ class MLP(nn.Module):
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour x`factor` upsample of (..., H, W, C)."""
+    """Nearest-neighbour x`factor` upsample of (..., H, W, C), contiguous:
+    the reshape copies but for a 1x1 map, where it is a stride-0 view."""
     *B, H, W, C = x.shape
     x = x.reshape(*B, H, 1, W, 1, C).expand(*B, H, factor, W, factor, C)
-    return x.reshape(*B, H * factor, W * factor, C)
+    return x.reshape(*B, H * factor, W * factor, C).contiguous()
 
 
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

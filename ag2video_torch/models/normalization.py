@@ -38,7 +38,9 @@ import torch
 from torch import nn
 
 from ag2video_torch.models.layers import (Conv, ConvTranspose, Dense,
-                                          conv2d_nhwc, resize_nearest)
+                                          conv2d_nhwc, leaky_relu_02,
+                                          resize_nearest)
+from ag2video_torch.ops import denorm as denorm_ops
 from ag2video_torch.parallel.mesh import AllReduceSum, current_data_group
 
 
@@ -208,6 +210,29 @@ class ParamFreeNorm(nn.Module):
             self.bn = GroupNorm(min(32, features))
         else:
             raise ValueError(f"Unrecognized param-free norm {kind!r}")
+        self._stats = None
+
+    @property
+    def running(self) -> bool:
+        """Whether eval mode normalises by running statistics (the batch
+        kinds), not by each sample's own."""
+        return isinstance(self.bn, BatchNorm)
+
+    def running_stats(self):
+        """(mean, mul): the fp32 running mean and rsqrt(running_var + eps)
+        that `normalize` applies with `train=False`, computed as it computes
+        them; cached until either buffer is replaced or written."""
+        rm, rv = self.bn.running_mean, self.bn.running_var
+        c = self._stats
+        if (c is not None and c[0] is rm and c[1] == rm._version
+                and c[2] is rv and c[3] == rv._version):
+            return c[4]
+        # Normal tensors even under inference_mode, as SpectralWeight's.
+        with torch.inference_mode(False), torch.no_grad():
+            stats = (rm.float().contiguous(),
+                     torch.rsqrt(rv + self.bn.eps).float().contiguous())
+        self._stats = (rm, rm._version, rv, rv._version, stats)
+        return stats
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.bn(x, train)
@@ -383,10 +408,26 @@ class SPADE(nn.Module):
     def normalize_affine(self, x, gamma, beta, train: bool = False):
         return self.param_free_norm(x, train) * (1 + gamma) + beta
 
+    def denorm(self, x: torch.Tensor, gb: torch.Tensor, train: bool = False,
+               act: bool = False) -> torch.Tensor:
+        """`normalize_affine` with gamma | beta the two halves of gb (...,
+        2C), then the stack's leaky ReLU if `act`. Where `denorm_ops.route`
+        says so (CUDA tensors, eval mode, running statistics, no gradient
+        to take) one launch of csrc/denorm.cu computes it, bit-equal to the
+        eager ops; otherwise the eager ops."""
+        needs_grad = torch.is_grad_enabled() and (x.requires_grad
+                                                  or gb.requires_grad)
+        pfn = self.param_free_norm
+        if denorm_ops.route(x.device.type, train, pfn.running,
+                            needs_grad) == "kernel":
+            return denorm_ops.denorm_fused(x, gb, *pfn.running_stats(), act)
+        nc = x.shape[-1]
+        y = self.normalize_affine(x, gb[..., :nc], gb[..., nc:], train)
+        return leaky_relu_02(y) if act else y
+
     def forward(self, x: torch.Tensor, segmap: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        nc = x.shape[-1]
         seg = resize_nearest(segmap, tuple(x.shape[-3:-1]))
         actv = torch.relu(self.mlp_shared(seg))
         gb = conv2d_nhwc(actv, *self.gamma_beta_kernels(), dtype=self.dtype)
-        return self.normalize_affine(x, gb[..., :nc], gb[..., nc:], train)
+        return self.denorm(x, gb, train)

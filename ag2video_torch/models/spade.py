@@ -33,7 +33,6 @@ class SPADEResnetBlock(nn.Module):
         spectral = "spectral" in norm_G
         spade_cfg = norm_G.replace("spectral", "")
         self.shortcut = fin != fout
-        self.fin, self.fmiddle = fin, fmiddle
         self.dtype = dtype
         if self.shortcut:
             self.norm_s = SPADE(spade_cfg, fin, label_nc, dtype)
@@ -47,10 +46,8 @@ class SPADEResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
         norms = [self.norm_0, self.norm_1]
-        ncs = [self.fin, self.fmiddle]
         if self.shortcut:
             norms.append(self.norm_s)
-            ncs.append(self.fin)
         seg_r = resize_nearest(seg, tuple(x.shape[-3:-1]))
         actv = torch.relu(conv2d_nhwc(
             seg_r,
@@ -58,21 +55,18 @@ class SPADEResnetBlock(nn.Module):
             torch.cat([n.mlp_shared.bias for n in norms], 0),
             dtype=self.dtype))
         nh = self.norm_0.nhidden
-        gammas, betas = [], []
-        for i, (n, nc) in enumerate(zip(norms, ncs)):
-            gb = conv2d_nhwc(actv[..., i * nh:(i + 1) * nh],
-                             *n.gamma_beta_kernels(), dtype=self.dtype)
-            gammas.append(gb[..., :nc])
-            betas.append(gb[..., nc:])
+        # Each norm's gamma | beta, kept whole for SPADE.denorm.
+        gbs = [conv2d_nhwc(actv[..., i * nh:(i + 1) * nh],
+                           *n.gamma_beta_kernels(), dtype=self.dtype)
+               for i, n in enumerate(norms)]
 
         x_s = x
         if self.shortcut:
-            x_s = self.conv_s(self.norm_s.normalize_affine(
-                x, gammas[2], betas[2], train), train)
-        dx = self.norm_0.normalize_affine(x, gammas[0], betas[0], train)
-        dx = self.conv_0(leaky_relu_02(dx), train)
-        dx = self.norm_1.normalize_affine(dx, gammas[1], betas[1], train)
-        dx = self.conv_1(leaky_relu_02(dx), train)
+            x_s = self.conv_s(self.norm_s.denorm(x, gbs[2], train), train)
+        dx = self.conv_0(self.norm_0.denorm(x, gbs[0], train, act=True),
+                         train)
+        dx = self.conv_1(self.norm_1.denorm(dx, gbs[1], train, act=True),
+                         train)
         return x_s + dx
 
 

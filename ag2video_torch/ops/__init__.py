@@ -1,6 +1,7 @@
 """Tensor ops: box transforms, IoU, the box rasterizer (CUDA kernel +
 plain version), the mask rasterizers, grid sampling, box crops and the
-flow warp."""
+flow warp. The SPADE norm's fused eval chain (CUDA kernel + plain
+version) is `ops.denorm`."""
 
 from ag2video_torch.ops.boxes import (  # noqa: F401
     apply_box_transform, centers_to_extents, extents_to_centers,

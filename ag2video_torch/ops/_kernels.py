@@ -146,3 +146,16 @@ def rasterize_library() -> KernelLibrary:
         lib.ag_rasterize_smem_bytes.restype = ctypes.c_longlong
         built.signatures_set = True
     return built
+
+
+def denorm_library() -> KernelLibrary:
+    """The fused SPADE denormalization (csrc/denorm.cu) with its C
+    signature set."""
+    built = load("denorm")
+    if not built.signatures_set:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        built.lib.ag_denorm_forward.argtypes = [p, p, p, p, p, ll, i, i, i,
+                                                i, i, p]
+        built.lib.ag_denorm_forward.restype = ctypes.c_int
+        built.signatures_set = True
+    return built

@@ -5,16 +5,18 @@
 
 Phases, each printing one line (any failure raises and exits nonzero):
 
-1. the card's name and power limit (nvidia-smi), the builds of the kernel
-   and of the host library (csrc/host.cpp, g++; not a device kernel), both
-   started together, and which of PIL, pandas, cv2 and imageio import here
-   (information; phase 12 decodes GIFs with PIL);
+1. the card's name and power limit (nvidia-smi), the builds of the two
+   kernels and of the host library (csrc/host.cpp, g++; not a device
+   kernel), all started together, and which of PIL, pandas, cv2 and
+   imageio import here (information; phase 12 decodes GIFs with PIL);
 2. the box-rasterizer kernel against its plain PyTorch version at the
    shapes of KERNEL_SHAPES (fully masked frames must come out exactly
    zero), then kernel, plain, library (torch.bmm) and fill_ times at the
    dense generator's shape (c), at the discriminator's shape (disc) and at
    the layout-conditioned MultiscaleDiscriminator's shape (msd), in turns
-   (`time_shape`), beside the kernel's bound;
+   (`time_shape`), beside the kernel's bound; then the fused SPADE
+   denormalization (csrc/denorm.cu) bit-equal to its plain chain and timed
+   beside its bound and the plain chain at DENORM_SHAPES (`phase_denorm`);
 3. gradients through the kernel's autograd.Function against autograd of the
    plain version, in fp32 and at the discriminator's bf16 shape;
 4. a small fp32 model at 64x64 built on the card (the default device) and
@@ -227,7 +229,9 @@ from ag2video_torch.models.generator import (Layout2VidGenerator,
                                              remove_dummy_objects_mask)
 from ag2video_torch.models.layout_model import MaskNet, create_mask_vecs
 from ag2video_torch.ops import crop_bbox_batch, masks_to_layout
-from ag2video_torch.ops._kernels import host_library, rasterize_library
+from ag2video_torch.ops import denorm as denorm_ops
+from ag2video_torch.ops._kernels import (denorm_library, host_library,
+                                         rasterize_library)
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
                                           boxes_to_layout_batch)
@@ -426,14 +430,20 @@ def phase_card():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(rasterize_library), pool.submit(host_library)]
-        built, host = (b.result() for b in builds)
-    ptxas = [ln.strip() for ln in built.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(rasterize_library), pool.submit(host_library),
+                  pool.submit(denorm_library)]
+        built, host, denorm = (b.result() for b in builds)
+
+    def ptxas(lib):
+        return " | ".join(ln.strip() for ln in lib.build_log.splitlines()
+                          if "registers" in ln or "spill" in ln)
+
     found = optional_packages()
     print(f"phase 1 build: csrc/rasterize.cu -> {built.path.name} in "
-          f"{built.build_seconds:.2f} s; ptxas: {' | '.join(ptxas)}; "
+          f"{built.build_seconds:.2f} s; ptxas: {ptxas(built)}; "
+          f"csrc/denorm.cu -> {denorm.path.name} in "
+          f"{denorm.build_seconds:.2f} s; ptxas: {ptxas(denorm)}; "
           f"csrc/host.cpp (host code, g++) -> {host.path.name} in "
           f"{host.build_seconds:.2f} s; optional packages: "
           + ", ".join(f"{m} {'imports' if ok else 'missing'}"
@@ -569,6 +579,75 @@ def phase_kernel():
     return timing
 
 
+# (name, B, H = W, C): SPADE norms of the B=16 cells' generator (ngf 64,
+# 256x256): up_3's norm_0, the largest, and head_0's, the smallest level.
+DENORM_SHAPES = [("up_3.norm_0", 16, 256, 128), ("head_0.norm_0", 16, 8, 1024)]
+
+
+def phase_denorm():
+    """Phase 2, the fused SPADE denormalization (csrc/denorm.cu): bit-equal
+    to its plain chain at each shape, both activations, then timed against
+    its bound (x, gamma, beta read and y written once: 8 bytes per bf16
+    element at 3.35 TB/s) and the plain chain, in turns."""
+    timing, lines = {}, []
+    for i, (name, B, H, C) in enumerate(DENORM_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(11 + i)
+        x = torch.randn(B, H, H, C, generator=g, device="cuda").bfloat16()
+        gb = torch.randn(B, H, H, 2 * C, generator=g, device="cuda") \
+            .bfloat16()
+        mean = torch.randn(C, generator=g, device="cuda")
+        mul = torch.rsqrt(torch.rand(C, generator=g, device="cuda") + 1e-5)
+        for act in (True, False):
+            k = denorm_ops.denorm_fused(x, gb, mean, mul, act)
+            p = denorm_ops.denorm_plain(x, gb, mean, mul, act)
+            if not torch.equal(k.view(torch.int16), p.view(torch.int16)):
+                raise AssertionError(f"denorm kernel at {name} (act={act}) "
+                                     f"is not bit-equal to the plain chain")
+        ms = interleaved_ms({
+            "kernel": lambda: denorm_ops.denorm_fused(x, gb, mean, mul, True),
+            "plain": lambda: denorm_ops.denorm_plain(x, gb, mean, mul, True),
+        })
+        moved = 4 * x.numel() * x.element_size()
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        lines.append(
+            f"at {name} {B}x{H}x{H}x{C} bf16 kernel {ms['kernel']:.4f} ms, "
+            f"plain chain {ms['plain']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({moved / 1e9:.3f} GB); kernel at "
+            f"{100 * bound_ms / ms['kernel']:.1f}% of its bound, "
+            f"{moved / ms['kernel'] / 1e6:.1f} GB/s")
+        timing[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                            bound_ms=bound_ms, bound_by="bytes")
+    print("phase 2 (denorm) bit-equal to the plain chain, leaky ReLU on and "
+          "off; medians of 15 samples of 10 launches in turns, CUDA events; "
+          + "; ".join(lines))
+    return timing
+
+
+# Launches of the fused SPADE denormalization on each main path that
+# generates frames in eval mode, keyed by path; the kernels line reports
+# them as `launches_<path>`.
+DENORM_LAUNCHES = {}
+DENORM_NORMS = 18  # SPADE norms in the generator: one launch each a frame
+
+
+def denorm_launches(path, frames=None):
+    """Record the denorm kernel's launches since its counter was last reset
+    as `path`'s, and reset it. With `frames` (generated frames, each a
+    `netG` call) they must be exactly 18 a frame; otherwise a positive
+    multiple of 18: every eval-mode norm on the card launches the kernel."""
+    n = denorm_ops.KERNEL_LAUNCHES.n
+    denorm_ops.KERNEL_LAUNCHES.reset()
+    ok = (n == DENORM_NORMS * frames if frames is not None
+          else n > 0 and n % DENORM_NORMS == 0)
+    if not ok:
+        raise AssertionError(f"{path}: {n} denorm kernel launches, want "
+                             + (f"{DENORM_NORMS} x {frames}" if frames
+                                is not None else f"a multiple of "
+                                f"{DENORM_NORMS}"))
+    DENORM_LAUNCHES[path] = n
+    return n
+
+
 def phase_grad():
     vecs, boxes, mask = raster_inputs(3, 6, 128, 32, torch.float32, 4)
     boxes[0, 1, 2] = 0.0
@@ -613,8 +692,11 @@ def phase_small_model():
         if v.device.type != "cuda" or not torch.equal(v.cpu(), cpu_state[k]):
             raise AssertionError(f"seeded weight {k} differs on the card")
     KERNEL_LAUNCHES.reset()
+    denorm_ops.KERNEL_LAUNCHES.reset()
     k_imgs, _ = generate(model, batch)
     torch.cuda.synchronize()
+    denorm_launches("per_generate_small_fp32",
+                    cfg.frames_per_action - cfg.n_frames_G + 1)
     if KERNEL_LAUNCHES.n == 0:
         raise AssertionError("the small model did not launch the kernel")
     model.layout_to_video.rasterizer_backend = "plain"
@@ -641,9 +723,13 @@ def phase_full(factorized):
 
     KERNEL_LAUNCHES.reset()
     PLAIN_CALLS.reset()
+    denorm_ops.KERNEL_LAUNCHES.reset()
     imgs, boxes = generate(model, batch)
     torch.cuda.synchronize()
     launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
+    denorm = denorm_launches(
+        f"per_generate_{'factorized' if factorized else 'dense'}",
+        T - cfg.n_frames_G + 1)
     if tuple(imgs.shape) != (B, T, H, W, 3):
         raise AssertionError(f"imgs_pred shape {tuple(imgs.shape)}")
     if not bool(torch.isfinite(imgs).all()) or \
@@ -670,7 +756,8 @@ def phase_full(factorized):
           f"{'factorized' if factorized else 'dense'} frontend B={B} T={T} "
           f"bf16: "
           f"imgs_pred {tuple(imgs.shape)} finite; rasterizer kernel "
-          f"launches {launches}, plain calls {plain}; {frames / dt:.2f} "
+          f"launches {launches}, plain calls {plain}; denorm kernel "
+          f"launches {denorm}; {frames / dt:.2f} "
           f"generated frames/s ({dt * 1e3:.1f} ms per call, mean of {runs}); "
           f"peak memory {peak / 2**30:.2f} GiB; model setup {setup_s:.1f} s")
     return launches
@@ -729,7 +816,9 @@ def load_reference():
 
 
 def phase_factorized():
+    denorm_ops.KERNEL_LAUNCHES.reset()
     out = dense_and_factorized("cuda", 64)
+    pair = denorm_launches("in_factorized_dense_pair_64")
     e_pair = max(check_close(f"64x64 factorized vs dense {name}",
                              out[True][i], out[False][i], PAIR_TOL)
                  for i, name in ((0, "imgs"), (1, "flows")))
@@ -743,7 +832,12 @@ def phase_factorized():
         session = GenerationSession(run_dir).load()  # on the card
     if next(session.model.parameters()).device.type != "cuda":
         raise AssertionError("the session's model is not on the card")
+    denorm_ops.KERNEL_LAUNCHES.reset()
     imgs, boxes = session.generate(inputs)
+    torch.cuda.synchronize()
+    session_32 = denorm_launches(
+        "per_session_generate_32",
+        np.shape(inputs["imgs"])[1] - cfg.n_frames_G + 1)
     t = {k: torch.as_tensor(inputs[k]).cuda() for k in inputs}
     with torch.no_grad():
         got = session.model(t["imgs"], t["objs"].long(), t["triplets"].long(),
@@ -772,7 +866,8 @@ def phase_factorized():
           f"torch_tools/data/reference_factorized_32.npz vs the JAX "
           f"package's outputs: " + ", ".join(
               f"{k} {v:.3e}" for k, v in errs.items()) +
-          f", conf_pred {flipped:.2%} differ")
+          f", conf_pred {flipped:.2%} differ; denorm kernel launches "
+          f"{pair} (a), {session_32} (b: 32x32, a 1x1 latent)")
 
 
 def named_leaves(trainer, attr):
@@ -1338,11 +1433,15 @@ def phase_fit(phase9_ms, out):
         torch.cuda.reset_peak_memory_stats()
         KERNEL_LAUNCHES.reset()
         PLAIN_CALLS.reset()
+        denorm_ops.KERNEL_LAUNCHES.reset()
         t0 = time.perf_counter()
         gifs = {}
         with recorded_gifs(gifs):  # phase 12 decodes them
             trainer = train_main(FIT_ARGS + ["--output_dir", out])
         torch.cuda.synchronize()
+        # train_step runs the eager ops (train=True); the validation
+        # passes launch the kernel.
+        denorm_launches("in_fit_validation")
         run_s = time.perf_counter() - t0
         launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
         peak = torch.cuda.max_memory_allocated()
@@ -1724,9 +1823,12 @@ def phase_clis(run_dir, tmp, fit_gifs):
 
     t_phase = time.perf_counter()
     gen_gifs = {}
+    denorm_ops.KERNEL_LAUNCHES.reset()
     with recorded_gifs(gen_gifs):
         results = generate_main(["--checkpoint", run_dir, "--num_videos", "2",
                              "--output_dir", os.path.join(tmp, "generated")])
+    torch.cuda.synchronize()
+    denorm_launches("in_generate_cli")
     pkls = sorted(glob.glob(os.path.join(results, "test", "*.pkl")))
     cfg, _ = Config.load_run_args(run_dir)
     # validation GIFs: 4 for each video of the pass's first batch
@@ -1908,6 +2010,7 @@ def phase_eval(run_dir, tmp):
     asset_s = time.perf_counter() - t_phase
     KERNEL_LAUNCHES.reset()
     PLAIN_CALLS.reset()
+    denorm_ops.KERNEL_LAUNCHES.reset()
     nets = []
     for net in EVAL_NETS:
         card = eval_net(net, assets[net], torch.device("cuda"))
@@ -1987,6 +2090,8 @@ def phase_eval(run_dir, tmp):
     del trainer, scorer
     if KERNEL_LAUNCHES.n or PLAIN_CALLS.n:
         raise AssertionError("the evaluation stack rasterized")
+    torch.cuda.synchronize()
+    denorm_launches("in_evaluation_stack")
     print(f"phase 13 evaluation stack: assets for {', '.join(EVAL_NETS)} "
           f"written by port_torch_weights in {asset_s:.1f} s; card vs CPU, "
           f"fp32, seeded weights from the assets: " + "; ".join(nets)
@@ -2731,6 +2836,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     timing = phase_kernel()
+    denorm_timing = phase_denorm()
     phase_grad()
     phase_small_model()
     launches = phase_full(factorized=False)
@@ -2775,7 +2881,14 @@ def main():
         **{f"launches_per_train_step_trajectory_{k}": v
            for k, v in per_step_trajectory.items()},
         msd_shape="N=12 O=12 D=512 256x256 bf16",
-        **{f"msd_{k}": v for k, v in msd.items()})]}))
+        **{f"msd_{k}": v for k, v in msd.items()}), {
+        "name": "denorm",
+        "route": "cuda",
+        "source": "ag2video_torch/csrc/denorm.cu",
+        "replaces": None,
+        **{f"{shape}_{k}": v for shape, t in denorm_timing.items()
+           for k, v in t.items()},
+        **{f"launches_{path}": n for path, n in DENORM_LAUNCHES.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels, and of an op whose CUDA
-backward the port works around (marker `gpu`).
+"""Card-only tests of the port's CUDA kernels (the rasterizer and the
+fused SPADE denormalization), and of an op whose CUDA backward the port
+works around (marker `gpu`).
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where JAX is absent; tests/conftest.py imports jax,
@@ -11,6 +12,7 @@ so there run it as
 import pytest
 import torch
 
+from ag2video_torch.ops import denorm as dn
 from ag2video_torch.ops import rasterize as tr
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -134,3 +136,181 @@ def test_avg_pool_3x3s2_gradient_matches_cpu(cuda, dtype):
         # sums that cancel lose every bit, so the bound is on the whole:
         # rel-L2 within a few bf16 roundings (the fault gives ~1).
         assert float((got - want).norm() / want.norm()) <= 1e-2
+
+
+# The 18 SPADE norms of the cells' generator (ngf 64, 256x256, "normal"
+# upsampling): (name, level H = W, channels, leaky ReLU fused).
+SPADE_NORMS = []
+for _blk, _h, _fin, _fout in (("head_0", 8, 1024, 1024),
+                              ("G_middle_0", 16, 1024, 1024),
+                              ("G_middle_1", 16, 1024, 1024),
+                              ("up_0", 32, 1024, 512), ("up_1", 64, 512, 256),
+                              ("up_2", 128, 256, 128), ("up_3", 256, 128, 64)):
+    if _fin != _fout:
+        SPADE_NORMS.append((f"{_blk}.norm_s", _h, _fin, False))
+    SPADE_NORMS.append((f"{_blk}.norm_0", _h, _fin, True))
+    SPADE_NORMS.append((f"{_blk}.norm_1", _h, min(_fin, _fout), True))
+
+
+def same_bits(a, b):
+    """Bit-equal, NaNs included; the message counts what differs."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    iview = torch.int16 if a.element_size() == 2 else torch.int32
+    diff = a.view(iview) != b.view(iview)
+    n = int(diff.sum())
+    both_nan = int((diff & a.isnan() & b.isnan()).sum())
+    assert n == 0, f"{n} elements differ ({both_nan} of them NaN in both)"
+
+
+def _denorm_inputs(B, H, C, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(B, H, H, C, generator=g, device=device) * 3).to(dtype)
+    gb = torch.randn(B, H, H, 2 * C, generator=g, device=device).to(dtype)
+    special = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                            float("nan"), -1e-30, 1e30, -3.0],
+                           device=device).to(dtype)
+    x.view(-1)[:8] = special
+    gb.view(-1)[:8] = special.flip(0)
+    gb.view(-1)[C:C + 8] = special
+    mean = torch.randn(C, generator=g, device=device)
+    var = torch.rand(C, generator=g, device=device) * 2
+    var[0] = 0.0
+    return x, gb, mean, torch.rsqrt(var + 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("norm,H,C,act", SPADE_NORMS,
+                         ids=[n[0] for n in SPADE_NORMS])
+def test_denorm_kernel_is_bit_equal_to_plain(cuda, norm, H, C, act, B,
+                                              dtype):
+    x, gb, mean, mul = _denorm_inputs(B, H, C, dtype, cuda, H * C + B)
+    for a in (act, not act):
+        before = dn.KERNEL_LAUNCHES.n
+        k = dn.denorm_fused(x, gb, mean, mul, a)
+        torch.cuda.synchronize()
+        assert dn.KERNEL_LAUNCHES.n == before + 1
+        same_bits(k, dn.denorm_plain(x, gb, mean, mul, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_denorm_kernel_odd_channels_and_offsets(cuda, dtype):
+    """C not a multiple of the vector width, and a misaligned view: the
+    kernel's one-channel loop."""
+    x, gb, mean, mul = _denorm_inputs(2, 5, 12, dtype, cuda, 7)
+    for c in (3, 12):
+        xs, gbs = x[..., :c].contiguous(), gb[..., :2 * c].contiguous()
+        same_bits(dn.denorm_fused(xs, gbs, mean[:c].contiguous(),
+                                  mul[:c].contiguous(), True),
+                  dn.denorm_plain(xs, gbs, mean[:c], mul[:c], True))
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    same_bits(dn.denorm_fused(xo, gb, mean, mul, False),
+              dn.denorm_plain(x, gb, mean, mul, False))
+
+
+@pytest.mark.gpu
+def test_denorm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, gb, mean, mul = _denorm_inputs(2, 4, 16, torch.bfloat16, cuda, 3)
+    with pytest.raises(TypeError):
+        dn.denorm_fused(x.half(), gb.half(), mean, mul, True)
+    with pytest.raises(ValueError):
+        dn.denorm_fused(x.transpose(1, 2), gb, mean, mul, True)
+    with pytest.raises(ValueError):
+        dn.denorm_fused(x, gb[..., :24].contiguous(), mean, mul, True)
+    with pytest.raises(ValueError):
+        dn.denorm_fused(x.cpu(), gb, mean, mul, True)
+    with pytest.raises(ValueError):
+        dn.denorm_fused(x, gb, mean.cpu(), mul, True)
+
+
+def _small_generator(cuda):
+    from ag2video_torch.models.spade import SPADEGenerator
+    from ag2video_torch.weights import init_params
+
+    net = init_params(SPADEGenerator(12, ngf=8, dtype=torch.bfloat16), 0)
+    g = torch.Generator().manual_seed(1)
+    for m in net.modules():
+        if hasattr(m, "running_var"):
+            m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                             generator=g) * 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=g) + 0.5)
+    return net.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [64, 32])
+def test_spade_generator_with_the_kernel_is_bit_equal(cuda, monkeypatch,
+                                                      size):
+    """Every norm launches the kernel, at 32x32 (a 1x1 latent, upsampled
+    into G_middle_0's input) as at 64x64."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = _small_generator(cuda)
+    layout = torch.randn(2, size, size, 12, generator=torch.Generator()
+                         .manual_seed(2)).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        before = dn.KERNEL_LAUNCHES.n
+        fused = net(layout)
+        launched = dn.KERNEL_LAUNCHES.n - before
+        assert launched == 18
+        monkeypatch.setattr(
+            dn, "denorm_fused",
+            lambda x, gb, mean, mul, act: dn.denorm_plain(x, gb, mean, mul,
+                                                          act))
+        plain = net(layout)
+        # And today's ops: normalize_affine's sliced chain, then the ReLU.
+        monkeypatch.setattr(dn, "route", lambda *facts: "plain")
+        eager = net(layout)
+    torch.cuda.synchronize()
+    same_bits(fused, plain)
+    same_bits(fused, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_spade_denorm_on_the_card_is_todays_sequence(cuda, dtype):
+    """SPADE.denorm through the kernel (its cached running statistics
+    included) against the slice, `normalize_affine`, `leaky_relu_02`
+    sequence it replaced."""
+    from ag2video_torch.models.layers import leaky_relu_02
+    from ag2video_torch.models.normalization import SPADE
+
+    spade = SPADE("spadesyncbatch3x3", 256, 3).to(cuda)
+    bn = spade.param_free_norm.bn
+    x, gb, mean, _ = _denorm_inputs(2, 16, 256, dtype, cuda, 5)
+    bn.running_mean.copy_(mean)
+    bn.running_var.uniform_(0.0, 2.0)
+    with torch.no_grad():
+        for act in (True, False):
+            before = dn.KERNEL_LAUNCHES.n
+            got = spade.denorm(x, gb, False, act)
+            assert dn.KERNEL_LAUNCHES.n == before + 1
+            want = spade.normalize_affine(x, gb[..., :256], gb[..., 256:])
+            same_bits(got, leaky_relu_02(want) if act else want)
+
+
+@pytest.mark.gpu
+def test_generate_launches_the_kernel_for_every_norm_of_every_frame(cuda):
+    from ag2video_torch import Config, get_vocab
+    from ag2video_torch.inference import generate, make_inputs
+    from ag2video_torch.models import AG2VideoModel
+
+    vocab = get_vocab("cater")
+    cfg = Config(dataset="cater", image_size=(64, 64), embedding_dim=16,
+                 gconv_dim=16, gconv_hidden_dim=32, ngf=8, nff=4,
+                 n_blocks_F=1, n_downsample_F=2).derive(vocab)
+    model = AG2VideoModel(cfg, vocab)
+    T = 8
+    batch = make_inputs(cfg, vocab, 2, T, seed=0)
+    generate(model, batch)  # builds the kernel
+    before = dn.KERNEL_LAUNCHES.n
+    imgs, _ = generate(model, batch)
+    torch.cuda.synchronize()
+    assert dn.KERNEL_LAUNCHES.n - before == 18 * (T - cfg.n_frames_G + 1)
+    assert dn.KERNEL_LAUNCHES.n - before == 126
+    assert bool(torch.isfinite(imgs).all())
