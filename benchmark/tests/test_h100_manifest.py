@@ -9,7 +9,6 @@ import re
 import pytest
 
 from benchmark import harness
-from benchmark.drivers import generate as gen
 
 MAN = harness.manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -107,8 +106,9 @@ def test_per_layer_metrics_move_an_end_to_end_metric_of_their_cells():
 def test_cell_files(w):
     cell = harness.load_cell(MAN, w["name"])
     assert cell["config"]["name"] == w["config"]
-    assert set(cell["limits"]) == set(gen.CHECKS)
-    importlib.import_module(f"benchmark.drivers.{cell['traffic']['driver']}")
+    driver = importlib.import_module(
+        f"benchmark.drivers.{cell['traffic']['driver']}")
+    assert set(cell["limits"]) == set(driver.CHECKS)
     for m in cell["per_layer"]:
         reader = importlib.import_module(
             f"benchmark.metrics.{m['name'].split('.')[0]}")
