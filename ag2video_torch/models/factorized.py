@@ -31,8 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ag2video_torch.models.layers import conv2d_nhwc, trunc_normal_
-from ag2video_torch.models.normalization import split_norm, subnorm_layer
+from ag2video_torch.models.layers import trunc_normal_
+from ag2video_torch.models.normalization import (BatchNorm, split_norm,
+                                                 subnorm_layer)
+from ag2video_torch.ops import objconv
 
 
 def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor,
@@ -92,7 +94,8 @@ class FactorizedNormConv(nn.Module):
     per-(frame, object) kernel projection for the layout channels, a dense
     3x3 SAME conv for the image channels, and the subnorm (submodule
     `norm`: BatchNorm or the instance norm), or a bias when the norm has no
-    subnorm.
+    subnorm; then the leaky ReLU (0.2) that both of the generator's uses
+    apply (the JAX module leaves it to its caller).
     """
 
     def __init__(self, features: int, norm: str, seg_dim: int, n_frames: int,
@@ -150,7 +153,13 @@ class FactorizedNormConv(nn.Module):
     def forward(self, cov_win: torch.Tensor, vecs_win: torch.Tensor,
                 img: torch.Tensor, train: bool = False) -> torch.Tensor:
         """cov_win (B, n_frames, O, H, W), vecs_win (B, n_frames, O,
-        seg_dim), img (B, H, W, img_ch) -> (B, H, W, features)."""
+        seg_dim), img (B, H, W, img_ch) -> (B, H, W, features), then the
+        leaky ReLU that follows both of the frame loop's factorized convs.
+        Where `objconv.route` says so (CUDA tensors, eval mode, a BatchNorm
+        on running statistics or no subnorm, no gradient to take) one launch
+        of csrc/objconv.cu computes the contraction, the image conv, the
+        norm and the activation; otherwise the eager ops
+        (`objconv.objconv_plain`)."""
         B, nF, O, H, W = cov_win.shape
         ks = self.ks
         seg_ch = self.n_frames * self.seg_dim
@@ -164,12 +173,26 @@ class FactorizedNormConv(nn.Module):
             -1, self.n_frames, self.seg_dim, ks * ks)
         wk = torch.einsum("fnds,bnod->bnosf", k_seg, vecs_win.to(kdt))
         wk = wk.reshape(B, nF * O, ks * ks, -1)
-        cov = cov_win.reshape(B, nF * O, H, W).to(kdt)
-        out = object_basis_conv(cov, wk, ks)
+        cov = cov_win.to(kdt)
+        w_img = kernel_n[:, seg_ch:]
+        img = img.to(kdt)
 
-        # Dense image part, computed in kdt and added in fp32.
-        out = out + conv2d_nhwc(img.to(kdt), kernel_n[:, seg_ch:], None,
-                                dtype=kdt).float()
-        if self.norm is None:
-            return (out + self.bias).to(kdt)
-        return self.norm(out.to(kdt), train)
+        # The kernel's norms: a BatchNorm (running statistics in eval mode)
+        # with its bias, or none.
+        norm = self.norm
+        running = norm is None or (isinstance(norm, BatchNorm)
+                                   and norm.bias is not None)
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (wk, cov, img, w_img))
+        if objconv.route(cov.device.type, train, running,
+                         needs_grad) == "kernel":
+            if norm is None:
+                mean = mul = None
+                shift = self.bias.float().contiguous()
+            else:
+                mean, mul, shift = norm.eval_affine()
+            return objconv.objconv_fused(
+                cov, wk, img.contiguous(), w_img.contiguous(), mean, mul,
+                shift)
+        return objconv.objconv_plain(cov.reshape(B, nF * O, H, W), wk, img,
+                                     w_img, norm, self.bias, train)

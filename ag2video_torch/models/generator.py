@@ -26,8 +26,9 @@ warped frame. Two modes share one `frame_step`:
   per-object box coverage maps are computed once (`box_coverage`, cast to
   the vecs' dtype) and the two frontend convs, `flow_down_0` (in front of a
   `FlowsGenerator(skip_first=True)`) and `conv_dim_in`, consume each
-  frame's (coverage, vecs) window in the object basis (models/factorized.py).
-  Nothing is rasterized.
+  frame's (coverage, vecs) window in the object basis (models/factorized.py),
+  each with its leaky ReLU (one launch of csrc/objconv.cu for the pair on
+  the card in eval mode). Nothing is rasterized.
 * Dense frontend (`factorized_frontend=False`): all B*T layouts are
   rasterized by one `boxes_to_layout_batch` call (the CUDA kernel on the
   card) and each frame's window is their channel stack.
@@ -104,8 +105,7 @@ class _FrameStep(nn.Module):
                     cov_win, vecs_win = window
                     feat = self.flow_down_0(cov_win, vecs_win, imgs_prev,
                                             train)
-                    _weight, flow = self.flows_network(leaky_relu_02(feat),
-                                                       train)
+                    _weight, flow = self.flows_network(feat, train)
                 else:
                     input_flow = torch.cat(
                         [window, imgs_prev.to(window.dtype)], dim=-1)
@@ -123,10 +123,9 @@ class _FrameStep(nn.Module):
                                          img_prev_warp.to(cov_win.dtype),
                                          train)
                 else:
-                    x = self.conv_dim_in(
+                    x = leaky_relu_02(self.conv_dim_in(
                         torch.cat([window, img_prev_warp.to(window.dtype)],
-                                  dim=-1), train)
-                x = leaky_relu_02(x)
+                                  dim=-1), train))
 
             with span("ag2v.frame.spade"):
                 img_raw = self.netG(x, train).float() + img_prev_warp

@@ -125,6 +125,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.dtype = dtype
+        self._affine = None
 
     def init_(self, g: torch.Generator) -> None:
         with torch.no_grad():
@@ -134,6 +135,29 @@ class BatchNorm(nn.Module):
                 self.bias.zero_()
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
+
+    def eval_affine(self):
+        """(mean, mul, shift): the fp32 running mean, rsqrt(running_var +
+        eps) * scale and the bias (None without one) that `normalize`
+        applies with `train=False`, computed as it computes them; cached
+        until a buffer or parameter is replaced or written."""
+        parts = (self.running_mean, self.running_var, self.weight, self.bias)
+        key = tuple((id(t), t._version) if t is not None else None
+                    for t in parts)
+        c = self._affine
+        if c is not None and c[0] == key:
+            return c[1]
+        # Normal tensors even under inference_mode, as SpectralWeight's.
+        with torch.inference_mode(False), torch.no_grad():
+            mul = torch.rsqrt(self.running_var + self.eps)
+            if self.weight is not None:
+                mul = mul * self.weight
+            affine = (self.running_mean.float().contiguous(),
+                      mul.float().contiguous(),
+                      None if self.bias is None
+                      else self.bias.float().contiguous())
+        self._affine = (key, affine, parts)
+        return affine
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
@@ -210,7 +234,6 @@ class ParamFreeNorm(nn.Module):
             self.bn = GroupNorm(min(32, features))
         else:
             raise ValueError(f"Unrecognized param-free norm {kind!r}")
-        self._stats = None
 
     @property
     def running(self) -> bool:
@@ -220,19 +243,9 @@ class ParamFreeNorm(nn.Module):
 
     def running_stats(self):
         """(mean, mul): the fp32 running mean and rsqrt(running_var + eps)
-        that `normalize` applies with `train=False`, computed as it computes
-        them; cached until either buffer is replaced or written."""
-        rm, rv = self.bn.running_mean, self.bn.running_var
-        c = self._stats
-        if (c is not None and c[0] is rm and c[1] == rm._version
-                and c[2] is rv and c[3] == rv._version):
-            return c[4]
-        # Normal tensors even under inference_mode, as SpectralWeight's.
-        with torch.inference_mode(False), torch.no_grad():
-            stats = (rm.float().contiguous(),
-                     torch.rsqrt(rv + self.bn.eps).float().contiguous())
-        self._stats = (rm, rm._version, rv, rv._version, stats)
-        return stats
+        that `normalize` applies with `train=False` (`BatchNorm.eval_affine`,
+        cached there)."""
+        return self.bn.eval_affine()[:2]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.bn(x, train)

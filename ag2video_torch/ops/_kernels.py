@@ -159,3 +159,16 @@ def denorm_library() -> KernelLibrary:
         built.lib.ag_denorm_forward.restype = ctypes.c_int
         built.signatures_set = True
     return built
+
+
+def objconv_library() -> KernelLibrary:
+    """The fused factorized frontend conv (csrc/objconv.cu) with its C
+    signatures set."""
+    built = load("objconv")
+    if not built.signatures_set:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        built.lib.ag_objconv_forward.argtypes = [
+            p, ll, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        built.lib.ag_objconv_forward.restype = ctypes.c_int
+        built.signatures_set = True
+    return built

@@ -17,6 +17,9 @@ Phases, each printing one line (any failure raises and exits nonzero):
    (`time_shape`), beside the kernel's bound; then the fused SPADE
    denormalization (csrc/denorm.cu) bit-equal to its plain chain and timed
    beside its bound and the plain chain at DENORM_SHAPES (`phase_denorm`);
+   then the fused factorized frontend conv (csrc/objconv.cu) against its
+   plain chain and timed beside its bound, the plain chain and the library
+   products (cuBLAS bmm + cuDNN conv) at OBJCONV_SHAPES (`phase_objconv`);
 3. gradients through the kernel's autograd.Function against autograd of the
    plain version, in fp32 and at the discriminator's bf16 shape;
 4. a small fp32 model at 64x64 built on the card (the default device) and
@@ -225,12 +228,17 @@ from ag2video_torch.models import AG2VideoModel
 from ag2video_torch.models.discriminator_variants import (
     AcCropDiscriminator, MultiscaleDiscriminator, MultiscaleDiscriminatorT)
 from ag2video_torch.models.encoder import ConvEncoder, reparameterize
+from ag2video_torch.models.factorized import shifted_stack
 from ag2video_torch.models.generator import (Layout2VidGenerator,
                                              remove_dummy_objects_mask)
 from ag2video_torch.models.layout_model import MaskNet, create_mask_vecs
+from ag2video_torch.models.layers import conv2d_nhwc
+from ag2video_torch.models.normalization import BatchNorm
 from ag2video_torch.ops import crop_bbox_batch, masks_to_layout
 from ag2video_torch.ops import denorm as denorm_ops
+from ag2video_torch.ops import objconv as objconv_ops
 from ag2video_torch.ops._kernels import (denorm_library, host_library,
+                                         objconv_library,
                                          rasterize_library)
 from ag2video_torch.ops.rasterize import (KERNEL_LAUNCHES, PLAIN_CALLS,
                                           box_coverage,
@@ -430,10 +438,10 @@ def phase_card():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(rasterize_library), pool.submit(host_library),
-                  pool.submit(denorm_library)]
-        built, host, denorm = (b.result() for b in builds)
+                  pool.submit(denorm_library), pool.submit(objconv_library)]
+        built, host, denorm, objconv = (b.result() for b in builds)
 
     def ptxas(lib):
         return " | ".join(ln.strip() for ln in lib.build_log.splitlines()
@@ -444,6 +452,8 @@ def phase_card():
           f"{built.build_seconds:.2f} s; ptxas: {ptxas(built)}; "
           f"csrc/denorm.cu -> {denorm.path.name} in "
           f"{denorm.build_seconds:.2f} s; ptxas: {ptxas(denorm)}; "
+          f"csrc/objconv.cu -> {objconv.path.name} in "
+          f"{objconv.build_seconds:.2f} s; ptxas: {ptxas(objconv)}; "
           f"csrc/host.cpp (host code, g++) -> {host.path.name} in "
           f"{host.build_seconds:.2f} s; optional packages: "
           + ", ".join(f"{m} {'imports' if ok else 'missing'}"
@@ -648,6 +658,142 @@ def denorm_launches(path, frames=None):
     return n
 
 
+# (name, B, nF, O, H, W, F, C): the B=16 cell's two factorized frontend
+# convs (generator.py's conv_dim_in and flow_down_0).
+OBJCONV_SHAPES = [("conv_dim_in", 16, 2, 11, 256, 256, 512, 3),
+                  ("flow_down_0", 16, 2, 11, 256, 256, 32, 3)]
+# Only the order of the fp32 sums differs from the plain chain (tensor
+# cores against the fp32 bmm): at most this share of the elements may
+# differ at all, and the whole by at most this relative L2.
+OBJCONV_DIFFER = 1e-3
+OBJCONV_REL_L2 = 1e-3
+
+
+def objconv_inputs(B, nF, O, H, W, F, C, seed):
+    """The frame loop's window (box coverage sliced from a T=8 clip, bf16),
+    projected kernels, image and image kernel, and a BatchNorm with
+    running statistics, on the card; seeded."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    boxes = torch.cat([torch.rand(B, 8, O, 2, generator=g, device="cuda")
+                       * 0.8, 0.05 + torch.rand(B, 8, O, 2, generator=g,
+                                                device="cuda") * 0.5], -1)
+    mask = (torch.rand(B, 8, O, generator=g, device="cuda") > 0.2).float()
+    cov = box_coverage(boxes, H, W, mask).to(torch.bfloat16)[:, 3:3 + nF]
+    wk = (torch.randn(B, nF * O, 9, F, generator=g, device="cuda")
+          * 0.3).bfloat16()
+    img = torch.rand(B, H, W, C, generator=g, device="cuda").bfloat16()
+    w_img = (torch.randn(F, C, 3, 3, generator=g, device="cuda")
+             * 0.3).bfloat16()
+    bn = BatchNorm(F, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        bn.running_mean.normal_(0.0, 0.3, generator=g)
+        bn.running_var.uniform_(0.3, 3.0, generator=g)
+        bn.weight.normal_(1.0, 0.3, generator=g)
+        bn.bias.normal_(0.0, 0.3, generator=g)
+    return cov, wk, img, w_img, bn
+
+
+def phase_objconv():
+    """Phase 2, the fused factorized frontend conv (csrc/objconv.cu): at
+    each shape, with the BatchNorm and with a bias alone, against its plain
+    chain (the share of elements that differ and
+    the relative L2 within OBJCONV_DIFFER / OBJCONV_REL_L2); then timed in
+    turns against its bound (coverage and image read, the bf16 output
+    written once; 2 * 9 * (K + C) FLOPs an output element), the plain chain
+    and the library products alone (torch.bmm of the precomputed bf16
+    shifted coverage and cuDNN's bf16 image conv: no norm, no activation;
+    the port never calls them so)."""
+    timing, lines = {}, []
+    for i, (name, B, nF, O, H, W, F, C) in enumerate(OBJCONV_SHAPES):
+        cov, wk, img, w_img, bn = objconv_inputs(B, nF, O, H, W, F, C,
+                                                 21 + i)
+        K = nF * O
+        cov4 = cov.reshape(B, K, H, W)
+        mean, mul, shift = bn.eval_affine()
+        bias = shift
+        worst = (0.0, 0.0)
+        with torch.no_grad():
+            for norm in (True, False):
+                k = (objconv_ops.objconv_fused(
+                    cov, wk, img, w_img, mean, mul, shift) if norm
+                    else objconv_ops.objconv_fused(
+                        cov, wk, img, w_img, None, None, bias))
+                p = objconv_ops.objconv_plain(
+                    cov4, wk, img, w_img, bn if norm else None,
+                    None if norm else bias, False)
+                torch.cuda.synchronize()
+                share = float((k.view(torch.int16) != p.view(torch.int16))
+                              .float().mean())
+                rel = float((k.float() - p.float()).norm()
+                            / p.float().norm())
+                if share > OBJCONV_DIFFER or rel > OBJCONV_REL_L2:
+                    raise AssertionError(
+                        f"objconv kernel at {name} (norm={norm}): "
+                        f"{share:.3e} of the elements differ, rel-L2 "
+                        f"{rel:.3e}")
+                worst = (max(worst[0], share), max(worst[1], rel))
+                del k, p
+            cs = shifted_stack(cov4, 3).reshape(
+                B, K * 9, H * W).transpose(1, 2).contiguous()
+            wk3 = wk.reshape(B, K * 9, F)
+            ms = interleaved_ms({
+                "kernel": lambda: objconv_ops.objconv_fused(
+                    cov, wk, img, w_img, mean, mul, shift),
+                "plain": lambda: objconv_ops.objconv_plain(
+                    cov4, wk, img, w_img, bn, None, False),
+                "library": lambda: (torch.bmm(cs, wk3), conv2d_nhwc(
+                    img, w_img, None, dtype=torch.bfloat16)),
+            }, rounds=7, reps=5)
+            del cs
+        moved = (cov.numel() + img.numel() + B * H * W * F) * 2
+        flops = 2 * B * H * W * F * 9 * (K + C)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        lines.append(
+            f"at {name} B={B} {H}x{W} nF*O={K} F={F} C={C} bf16: "
+            f"{worst[0]:.3e} of the elements differ at most, rel-L2 "
+            f"{worst[1]:.3e}; kernel {ms['kernel']:.4f} ms, plain chain "
+            f"{ms['plain']:.4f} ms, library (bmm + cuDNN conv) "
+            f"{ms['library']:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+            f"{moved / 1e9:.3f} GB = {bytes_ms:.4f} ms, {flops / 1e9:.1f} "
+            f"GFLOP = {flops_ms:.4f} ms); kernel at "
+            f"{100 * bound_ms / ms['kernel']:.1f}% of its bound, "
+            f"{moved / ms['kernel'] / 1e6:.1f} GB/s, "
+            f"{flops / ms['kernel'] / 1e9:.1f} TFLOP/s")
+        timing[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                            library_ms=ms["library"], bound_ms=bound_ms,
+                            bound_by="bytes" if bytes_ms >= flops_ms
+                            else "flops", differ=worst[0], rel_l2=worst[1])
+        del cov, wk, img, w_img, cov4
+        torch.cuda.empty_cache()
+    print("phase 2 (objconv) against the plain chain, BatchNorm and bias; "
+          "medians of 7 samples of 5 launches in "
+          "turns, CUDA events; " + "; ".join(lines))
+    return timing
+
+
+# Launches of the fused factorized frontend conv on each main path, keyed
+# by path; the kernels line reports them as `launches_<path>`.
+OBJCONV_LAUNCHES = {}
+
+
+def objconv_launches(path, want=None):
+    """Record the objconv kernel's launches since its counter was last
+    reset as `path`'s, reset it, and hold them to `want`; by default to 2
+    a generated frame (flow_down_0 and conv_dim_in of a factorized
+    generator), counted from the denorm kernel's 18 a frame on `path`."""
+    if want is None:
+        want = 2 * DENORM_LAUNCHES[path] // DENORM_NORMS
+    n = objconv_ops.KERNEL_LAUNCHES.n
+    objconv_ops.KERNEL_LAUNCHES.reset()
+    if n != want:
+        raise AssertionError(f"{path}: {n} objconv kernel launches, want "
+                             f"{want}")
+    OBJCONV_LAUNCHES[path] = n
+    return n
+
+
 def phase_grad():
     vecs, boxes, mask = raster_inputs(3, 6, 128, 32, torch.float32, 4)
     boxes[0, 1, 2] = 0.0
@@ -724,12 +870,15 @@ def phase_full(factorized):
     KERNEL_LAUNCHES.reset()
     PLAIN_CALLS.reset()
     denorm_ops.KERNEL_LAUNCHES.reset()
+    objconv_ops.KERNEL_LAUNCHES.reset()
     imgs, boxes = generate(model, batch)
     torch.cuda.synchronize()
     launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
-    denorm = denorm_launches(
-        f"per_generate_{'factorized' if factorized else 'dense'}",
-        T - cfg.n_frames_G + 1)
+    path = f"per_generate_{'factorized' if factorized else 'dense'}"
+    denorm = denorm_launches(path, T - cfg.n_frames_G + 1)
+    # flow_down_0 and conv_dim_in of each generated frame, factorized only.
+    objconv = objconv_launches(
+        path, 2 * (T - cfg.n_frames_G + 1) if factorized else 0)
     if tuple(imgs.shape) != (B, T, H, W, 3):
         raise AssertionError(f"imgs_pred shape {tuple(imgs.shape)}")
     if not bool(torch.isfinite(imgs).all()) or \
@@ -757,7 +906,8 @@ def phase_full(factorized):
           f"bf16: "
           f"imgs_pred {tuple(imgs.shape)} finite; rasterizer kernel "
           f"launches {launches}, plain calls {plain}; denorm kernel "
-          f"launches {denorm}; {frames / dt:.2f} "
+          f"launches {denorm}; objconv kernel launches {objconv}; "
+          f"{frames / dt:.2f} "
           f"generated frames/s ({dt * 1e3:.1f} ms per call, mean of {runs}); "
           f"peak memory {peak / 2**30:.2f} GiB; model setup {setup_s:.1f} s")
     return launches
@@ -817,8 +967,12 @@ def load_reference():
 
 def phase_factorized():
     denorm_ops.KERNEL_LAUNCHES.reset()
+    objconv_ops.KERNEL_LAUNCHES.reset()
     out = dense_and_factorized("cuda", 64)
     pair = denorm_launches("in_factorized_dense_pair_64")
+    # Two generators, the same frames: the factorized one's are half.
+    pair_objconv = objconv_launches("in_factorized_dense_pair_64",
+                                    pair // DENORM_NORMS)
     e_pair = max(check_close(f"64x64 factorized vs dense {name}",
                              out[True][i], out[False][i], PAIR_TOL)
                  for i, name in ((0, "imgs"), (1, "flows")))
@@ -833,11 +987,13 @@ def phase_factorized():
     if next(session.model.parameters()).device.type != "cuda":
         raise AssertionError("the session's model is not on the card")
     denorm_ops.KERNEL_LAUNCHES.reset()
+    objconv_ops.KERNEL_LAUNCHES.reset()
     imgs, boxes = session.generate(inputs)
     torch.cuda.synchronize()
     session_32 = denorm_launches(
         "per_session_generate_32",
         np.shape(inputs["imgs"])[1] - cfg.n_frames_G + 1)
+    session_32_objconv = objconv_launches("per_session_generate_32")
     t = {k: torch.as_tensor(inputs[k]).cuda() for k in inputs}
     with torch.no_grad():
         got = session.model(t["imgs"], t["objs"].long(), t["triplets"].long(),
@@ -867,7 +1023,9 @@ def phase_factorized():
           f"package's outputs: " + ", ".join(
               f"{k} {v:.3e}" for k, v in errs.items()) +
           f", conf_pred {flipped:.2%} differ; denorm kernel launches "
-          f"{pair} (a), {session_32} (b: 32x32, a 1x1 latent)")
+          f"{pair} (a), {session_32} (b: 32x32, a 1x1 latent); objconv "
+          f"kernel launches {pair_objconv} (a), {session_32_objconv} (b; "
+          f"{cfg.compute_dtype})")
 
 
 def named_leaves(trainer, attr):
@@ -1434,14 +1592,16 @@ def phase_fit(phase9_ms, out):
         KERNEL_LAUNCHES.reset()
         PLAIN_CALLS.reset()
         denorm_ops.KERNEL_LAUNCHES.reset()
+        objconv_ops.KERNEL_LAUNCHES.reset()
         t0 = time.perf_counter()
         gifs = {}
         with recorded_gifs(gifs):  # phase 12 decodes them
             trainer = train_main(FIT_ARGS + ["--output_dir", out])
         torch.cuda.synchronize()
         # train_step runs the eager ops (train=True); the validation
-        # passes launch the kernel.
+        # passes launch the kernels.
         denorm_launches("in_fit_validation")
+        objconv_launches("in_fit_validation")
         run_s = time.perf_counter() - t0
         launches, plain = KERNEL_LAUNCHES.n, PLAIN_CALLS.n
         peak = torch.cuda.max_memory_allocated()
@@ -1824,11 +1984,13 @@ def phase_clis(run_dir, tmp, fit_gifs):
     t_phase = time.perf_counter()
     gen_gifs = {}
     denorm_ops.KERNEL_LAUNCHES.reset()
+    objconv_ops.KERNEL_LAUNCHES.reset()
     with recorded_gifs(gen_gifs):
         results = generate_main(["--checkpoint", run_dir, "--num_videos", "2",
                              "--output_dir", os.path.join(tmp, "generated")])
     torch.cuda.synchronize()
     denorm_launches("in_generate_cli")
+    objconv_launches("in_generate_cli")
     pkls = sorted(glob.glob(os.path.join(results, "test", "*.pkl")))
     cfg, _ = Config.load_run_args(run_dir)
     # validation GIFs: 4 for each video of the pass's first batch
@@ -2011,6 +2173,7 @@ def phase_eval(run_dir, tmp):
     KERNEL_LAUNCHES.reset()
     PLAIN_CALLS.reset()
     denorm_ops.KERNEL_LAUNCHES.reset()
+    objconv_ops.KERNEL_LAUNCHES.reset()
     nets = []
     for net in EVAL_NETS:
         card = eval_net(net, assets[net], torch.device("cuda"))
@@ -2092,6 +2255,7 @@ def phase_eval(run_dir, tmp):
         raise AssertionError("the evaluation stack rasterized")
     torch.cuda.synchronize()
     denorm_launches("in_evaluation_stack")
+    objconv_launches("in_evaluation_stack")
     print(f"phase 13 evaluation stack: assets for {', '.join(EVAL_NETS)} "
           f"written by port_torch_weights in {asset_s:.1f} s; card vs CPU, "
           f"fp32, seeded weights from the assets: " + "; ".join(nets)
@@ -2837,6 +3001,7 @@ def main():
     phase_card()
     timing = phase_kernel()
     denorm_timing = phase_denorm()
+    objconv_timing = phase_objconv()
     phase_grad()
     phase_small_model()
     launches = phase_full(factorized=False)
@@ -2888,7 +3053,16 @@ def main():
         "replaces": None,
         **{f"{shape}_{k}": v for shape, t in denorm_timing.items()
            for k, v in t.items()},
-        **{f"launches_{path}": n for path, n in DENORM_LAUNCHES.items()}}]}))
+        **{f"launches_{path}": n for path, n in DENORM_LAUNCHES.items()}}, {
+        "name": "objconv",
+        "route": "cuda",
+        "source": "ag2video_torch/csrc/objconv.cu",
+        "replaces": None,
+        "library": "torch.bmm(bf16 shifted coverage, wk) + cuDNN bf16 conv "
+                   "of the image (no norm, no activation)",
+        **{f"{shape}_{k}": v for shape, t in objconv_timing.items()
+           for k, v in t.items()},
+        **{f"launches_{path}": n for path, n in OBJCONV_LAUNCHES.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

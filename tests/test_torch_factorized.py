@@ -86,13 +86,15 @@ def test_object_basis_conv_matches(rng):
                                   "spectral", "none"])
 def test_factorized_norm_conv_matches(rng, norm):
     """JAX params with perturbed BN statistics, scales, biases and `u`,
-    loaded through from_flax."""
+    loaded through from_flax. The port's module ends in the leaky ReLU that
+    the JAX module's callers apply."""
     cov, vecs, img = _window(rng, img_ch=5)
     jm = jf.FactorizedNormConv(features=7, norm=norm, seg_dim=16, n_frames=2)
     args = (jnp.asarray(cov), jnp.asarray(vecs), jnp.asarray(img))
     variables = jm.init(jax.random.PRNGKey(0), *args, train=False)
     variables = _perturb(variables, rng)
-    want = np.asarray(jm.apply(variables, *args, train=False))
+    want = np.asarray(jax.nn.leaky_relu(
+        jm.apply(variables, *args, train=False), 0.2))
     tm = tf.FactorizedNormConv(7, norm, 16, 2, 5).eval()
     from_flax(variables, tm)
     with torch.no_grad():

@@ -1,6 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (the rasterizer and the
-fused SPADE denormalization), and of an op whose CUDA backward the port
-works around (marker `gpu`).
+"""Card-only tests of the port's CUDA kernels (the rasterizer, the fused
+SPADE denormalization and the fused factorized frontend conv), and of an
+op whose CUDA backward the port works around (marker `gpu`).
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where JAX is absent; tests/conftest.py imports jax,
@@ -314,3 +314,235 @@ def test_generate_launches_the_kernel_for_every_norm_of_every_frame(cuda):
     assert dn.KERNEL_LAUNCHES.n - before == 18 * (T - cfg.n_frames_G + 1)
     assert dn.KERNEL_LAUNCHES.n - before == 126
     assert bool(torch.isfinite(imgs).all())
+
+
+# The fused factorized frontend conv (csrc/objconv.cu) against its plain
+# chain. Only the order of the fp32 sums differs (tensor cores against the
+# fp32 bmm), which now and then flips one bf16 rounding of the conv's
+# output before the norm: at most 0.1% of the elements may differ at all,
+# and the whole by at most 1e-3 relative L2. In fp32 compute nothing is
+# rounded to bf16 and every element may differ in its last bits: the whole
+# by at most 1e-5 relative L2 (TF32 off in the plain chain's cuDNN conv).
+OBJCONV_DIFFER = 1e-3
+OBJCONV_REL_L2 = 1e-3
+OBJCONV_REL_L2_FP32 = 1e-5
+# (B, nF, O, H, W, F, C): the B=16 cell's conv_dim_in and flow_down_0,
+# ragged ones (a partial edge tile, widths that are and are not a multiple
+# of 8, 64- and 32-feature blocks, K not a multiple of 8) and the largest
+# sizes the kernel takes.
+OBJCONV_SHAPES = [
+    (16, 2, 11, 256, 256, 512, 3),
+    (16, 2, 11, 256, 256, 32, 3),
+    (1, 2, 3, 64, 64, 128, 3),
+    (1, 2, 3, 50, 70, 128, 3),
+    (1, 2, 11, 9, 200, 512, 3),
+    (2, 2, 5, 37, 45, 64, 6),
+    (2, 1, 1, 9, 33, 96, 1),
+    (1, 4, 14, 40, 36, 1024, 16),
+]
+# (dtype, B, nF, O, H, W, F, C) off the tensor cores, on the kernel's CUDA
+# cores: fp32 compute (the cell's width and ragged ones), and bf16 with F
+# not a multiple of 32, more than 56 maps or more than 16 image channels.
+OBJCONV_DIRECT = [
+    (torch.float32, 2, 2, 11, 64, 64, 512, 3),
+    (torch.float32, 1, 2, 3, 50, 70, 128, 3),
+    (torch.float32, 2, 1, 1, 9, 33, 7, 1),
+    (torch.bfloat16, 1, 2, 3, 50, 70, 48, 3),
+    (torch.bfloat16, 2, 2, 5, 37, 45, 20, 6),
+    (torch.bfloat16, 1, 3, 20, 33, 40, 96, 17),
+]
+
+
+def _objconv_inputs(B, nF, O, H, W, F, C, device, seed,
+                    dtype=torch.bfloat16):
+    """A window of box coverage sliced from a longer clip, projected
+    kernels, an image, its kernel (all in `dtype`) and a BatchNorm with
+    running statistics, all seeded."""
+    from ag2video_torch.models.normalization import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    T = nF + 2
+    boxes = torch.cat([torch.rand(B, T, O, 2, generator=g) * 0.8,
+                       0.05 + torch.rand(B, T, O, 2, generator=g) * 0.5], -1)
+    mask = (torch.rand(B, T, O, generator=g) > 0.2).float()
+    cov = tr.box_coverage(boxes, H, W, mask).to(dtype)[:, 1:1 + nF]
+    wk = (torch.randn(B, nF * O, 9, F, generator=g) * 0.3).to(dtype)
+    img = torch.rand(B, H, W, C, generator=g).to(dtype)
+    w_img = (torch.randn(F, C, 3, 3, generator=g) * 0.3).to(dtype)
+    bn = BatchNorm(F, dtype=dtype)
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(F, generator=g) * 0.3)
+        bn.running_var.uniform_(0.3, 3.0, generator=g)
+        bn.weight.copy_(1 + 0.3 * torch.randn(F, generator=g))
+        bn.bias.copy_(0.3 * torch.randn(F, generator=g))
+    bias = 0.3 * torch.randn(F, generator=g)
+    to = lambda t: t.to(device)
+    return (to(cov), to(wk), to(img), to(w_img), bn.to(device), to(bias))
+
+
+def _differ(k, p):
+    """(share of elements that differ, relative L2 of the difference)."""
+    assert k.dtype == p.dtype and k.shape == p.shape
+    ints = torch.int16 if k.dtype == torch.bfloat16 else torch.int32
+    share = float((k.view(ints) != p.view(ints)).float().mean())
+    rel = float((k.float() - p.float()).norm() / p.float().norm())
+    return share, rel
+
+
+def _objconv_against_plain(cuda, dtype, B, nF, O, H, W, F, C):
+    """The kernel against `objconv_plain`, with the BatchNorm and with a
+    bias alone, one launch each."""
+    from ag2video_torch.ops import objconv as oc
+
+    cov, wk, img, w_img, bn, bias = _objconv_inputs(
+        B, nF, O, H, W, F, C, cuda, B * F + H + C, dtype)
+    cov4 = cov.reshape(B, nF * O, H, W)
+    mean, mul, shift = bn.eval_affine()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for norm in (True, False):
+                before = oc.KERNEL_LAUNCHES.n
+                k = (oc.objconv_fused(cov, wk, img, w_img, mean, mul, shift)
+                     if norm else
+                     oc.objconv_fused(cov, wk, img, w_img, None, None, bias))
+                torch.cuda.synchronize()
+                assert oc.KERNEL_LAUNCHES.n == before + 1
+                p = oc.objconv_plain(cov4, wk, img, w_img,
+                                     bn if norm else None,
+                                     None if norm else bias, False)
+                share, rel = _differ(k, p)
+                if dtype == torch.bfloat16:
+                    assert share <= OBJCONV_DIFFER, (norm, share, rel)
+                    assert rel <= OBJCONV_REL_L2, (norm, share, rel)
+                else:
+                    assert rel <= OBJCONV_REL_L2_FP32, (norm, share, rel)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nF,O,H,W,F,C", OBJCONV_SHAPES)
+def test_objconv_kernel_matches_plain(cuda, B, nF, O, H, W, F, C):
+    _objconv_against_plain(cuda, torch.bfloat16, B, nF, O, H, W, F, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,nF,O,H,W,F,C", OBJCONV_DIRECT)
+def test_objconv_cuda_core_path_matches_plain(cuda, dtype, B, nF, O, H, W,
+                                              F, C):
+    _objconv_against_plain(cuda, dtype, B, nF, O, H, W, F, C)
+
+
+@pytest.mark.gpu
+def test_objconv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from ag2video_torch.ops import objconv as oc
+
+    cov, wk, img, w_img, bn, bias = _objconv_inputs(2, 2, 3, 16, 16, 64, 3,
+                                                    cuda, 0)
+    mean, mul, shift = bn.eval_affine()
+    ok = dict(cov=cov, wk=wk, img=img, w_img=w_img, mean=mean, mul=mul,
+              shift=shift)
+    bad = [
+        dict(wk=wk[:, :5].contiguous()),             # wk's maps
+        dict(wk=wk[..., :4, :].contiguous()),         # wk's shifts
+        dict(mean=mean[:48].contiguous()),            # the norm's features
+        dict(w_img=torch.zeros(64, 3, 5, 5, dtype=w_img.dtype,
+                               device=cuda)),         # a 5x5 kernel
+        dict(w_img=w_img[:32].contiguous()),          # img part's features
+        dict(w_img=w_img[:, :2].contiguous()),        # img part's channels
+        dict(wk=wk.transpose(1, 2).contiguous().transpose(1, 2)),
+        dict(img=img.cpu()),
+        dict(mean=mean.cpu()),
+    ]
+    for over in bad:
+        with pytest.raises(ValueError):
+            oc.objconv_fused(**dict(ok, **over))
+    with pytest.raises(TypeError):
+        oc.objconv_fused(**dict(ok, wk=wk.float()))
+
+
+def _small_factorized_cfg(**over):
+    from ag2video_torch import Config, get_vocab
+
+    vocab = get_vocab("cater")
+    kw = dict(dataset="cater", image_size=(64, 64), embedding_dim=16,
+              gconv_dim=16, gconv_hidden_dim=32, ngf=8, nff=32,
+              n_blocks_F=1, n_downsample_F=2)
+    kw.update(over)
+    return Config(**kw).derive(vocab), vocab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factorized", [True, False])
+def test_generate_launches_objconv_twice_a_frame(cuda, factorized):
+    """14 launches a T=8 factorized `generate` call (flow_down_0 and
+    conv_dim_in of each of 7 frames); none on the dense frontend."""
+    from ag2video_torch.inference import generate, make_inputs
+    from ag2video_torch.models import AG2VideoModel
+    from ag2video_torch.ops import objconv as oc
+
+    cfg, vocab = _small_factorized_cfg(factorized_frontend=factorized)
+    assert cfg.compute_dtype == "bfloat16"
+    model = AG2VideoModel(cfg, vocab)
+    T = 8
+    batch = make_inputs(cfg, vocab, 2, T, seed=0)
+    generate(model, batch)  # builds the kernels
+    before = oc.KERNEL_LAUNCHES.n
+    imgs, _ = generate(model, batch)
+    torch.cuda.synchronize()
+    want = 2 * (T - cfg.n_frames_G + 1) if factorized else 0
+    assert oc.KERNEL_LAUNCHES.n - before == want == (14 if factorized else 0)
+    assert bool(torch.isfinite(imgs).all())
+
+
+@pytest.mark.gpu
+def test_fp32_generate_launches_objconv_and_matches_the_eager_ops(
+        cuda, monkeypatch):
+    """In fp32 compute too, every generated frame launches the kernel
+    twice (its CUDA-core path), and the frames match those of the eager
+    ops (the route forced to 'plain', TF32 off) to fp32 rounding."""
+    from ag2video_torch.inference import generate, make_inputs
+    from ag2video_torch.models import AG2VideoModel
+    from ag2video_torch.ops import objconv as oc
+
+    # semantic_nc 4 attributes x 12 = 48 and nff 24: no multiple of 32.
+    cfg, vocab = _small_factorized_cfg(compute_dtype="float32",
+                                       embedding_dim=12, nff=24)
+    assert (cfg.semantic_nc, cfg.nff) == (48, 24)
+    model = AG2VideoModel(cfg, vocab)
+    T = 8
+    batch = make_inputs(cfg, vocab, 2, T, seed=0)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    generate(model, batch)  # builds the kernels
+    before = oc.KERNEL_LAUNCHES.n
+    imgs, _ = generate(model, batch)
+    torch.cuda.synchronize()
+    assert oc.KERNEL_LAUNCHES.n - before == 2 * (T - cfg.n_frames_G + 1)
+    monkeypatch.setattr(oc, "route", lambda *facts: "plain")
+    want, _ = generate(model, batch)
+    assert oc.KERNEL_LAUNCHES.n - before == 2 * (T - cfg.n_frames_G + 1)
+    rel = float((imgs - want).norm() / want.norm())
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.gpu
+def test_train_step_launches_no_objconv(cuda):
+    from ag2video_torch.inference import make_inputs
+    from ag2video_torch.ops import objconv as oc
+    from ag2video_torch.train import Trainer
+
+    cfg, vocab = _small_factorized_cfg(frames_per_action=3, max_objects=5,
+                                       max_triplets=6, max_actions=2,
+                                       gconv_num_layers=2, batch_size=2,
+                                       frames_per_action_graph=1, num_D=2,
+                                       n_layers_D=2)
+    batch = make_inputs(cfg, vocab, 2, cfg.frames_per_action, seed=0)
+    trainer = Trainer(cfg, vocab)
+    trainer.init(batch)
+    before = oc.KERNEL_LAUNCHES.n
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert oc.KERNEL_LAUNCHES.n == before

@@ -207,7 +207,8 @@ def test_spectral_normalize_gradient_matches(rng):
                                           ("spectralinstance", 1)])
 def test_factorized_norm_conv_train_matches(rng, norm, n_state):
     """FactorizedNormConv in train mode: `u` written once, BN batch
-    statistics (or the instance norm), the kernel's gradient."""
+    statistics (or the instance norm), the kernel's gradient. The port's
+    module ends in the leaky ReLU that the JAX module's callers apply."""
     B, nF, O, D, H, W = 3, 2, 3, 16, 8, 7
     boxes = rng.uniform(0.0, 0.6, (B, nF, O, 4)).astype(np.float32)
     cov = np.asarray(j_box_coverage(jnp.asarray(boxes), H, W))
@@ -221,7 +222,8 @@ def test_factorized_norm_conv_train_matches(rng, norm, n_state):
     class Wrapped:  # (vecs first, so its input gradient is compared)
         @staticmethod
         def apply(v, vecs, cov, img, **kw):
-            return jm.apply(v, cov, vecs, img, **kw)
+            out, new = jm.apply(v, cov, vecs, img, **kw)
+            return jax.nn.leaky_relu(out, 0.2), new
 
     tm = tf.FactorizedNormConv(7, norm, D, nF, 5)
     out_j, new_j, gp_j, gv_j = _jax_train(
