@@ -67,6 +67,19 @@ def make_inputs(cfg, vocab: Dict[str, Any], B: int, T: int,
             "actions": actions, "boxes": boxes}
 
 
+def _upload(a: Any, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """An input array on `dev` in `dtype`, cast on the host by numpy (every
+    cast is exact: int -> int64, fp32 -> fp32). For the card the block is
+    pinned (the caching host allocator's, which keeps it until its copy has
+    run) and copied without blocking, so the host does not wait for the
+    card; numpy fills it in ~3/4 of the host time of torch's `copy_` (H100
+    host, one thread)."""
+    a = np.asarray(a)
+    staged = torch.empty(a.shape, dtype=dtype, pin_memory=dev.type == "cuda")
+    np.copyto(staged.numpy(), a, casting="unsafe")
+    return staged.to(dev, non_blocking=True)
+
+
 def generate(model: torch.nn.Module, batch: Any,
              actions: Optional[np.ndarray] = None, use_gt: bool = False,
              layout_only: bool = False
@@ -79,6 +92,10 @@ def generate(model: torch.nn.Module, batch: Any,
     the static action cap as the JAX session does. use_gt=True renders from
     the ground-truth boxes (the reference's --use_test mode);
     layout_only=True returns the box rollout only and skips pixel synthesis.
+
+    Only the conditioning frames of `imgs` (the first n_frames_G - 1) reach
+    the device: the test path reads no other. On the card the call never
+    waits for it; the outputs are ready once the stream has run.
     """
     with span("ag2v.generate"):
         b: Mapping[str, Any] = batch.as_dict() \
@@ -96,8 +113,10 @@ def generate(model: torch.nn.Module, batch: Any,
             b = dict(b, actions=padded)
         dev = next(model.parameters()).device
         with span("ag2v.upload"):
-            t = {k: torch.as_tensor(np.asarray(b[k])).to(dev, _DTYPES[k])
-                 for k in _DTYPES}
+            # The test path reads only the conditioning frames.
+            ncond = model.config.n_frames_G - 1
+            t = {k: _upload(np.asarray(b[k])[:, :ncond] if k == "imgs"
+                            else b[k], _DTYPES[k], dev) for k in _DTYPES}
         model.eval()
         with torch.no_grad():
             out = model(t["imgs"], t["objs"], t["triplets"], t["actions"],

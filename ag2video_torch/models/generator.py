@@ -173,11 +173,22 @@ class Layout2VidGenerator(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """imgs_gt (B, T, H, W, 3), objs (B, O, A), obj_vecs (B, T, O, G),
         layout_boxes (B, T, O, 4) -> (imgs_pred (B, T, H, W, 3),
-        flows (B, T, H, W, 2), confs (B, T, H, W, 1)), all fp32."""
-        B, T, H, W, _ = imgs_gt.shape
+        flows (B, T, H, W, 2), confs (B, T, H, W, 1)), all fp32.
+
+        T is the layouts'. The autoregressive path reads only the first
+        ncond = n_frames_G - 1 frames of imgs_gt, so it may hold just those;
+        the teacher-forced path needs all T."""
+        B, T = layout_boxes.shape[:2]
+        H, W = imgs_gt.shape[2:4]
         ncond = self.n_frames_G - 1
         if T <= ncond:
             raise ValueError(f"need more than {ncond} frames, got T={T}")
+        if teacher_forced and imgs_gt.shape[1] != T:
+            raise ValueError(f"teacher forcing needs all {T} frames, got "
+                             f"{imgs_gt.shape[1]}")
+        if imgs_gt.shape[1] < ncond:
+            raise ValueError(f"need the {ncond} conditioning frames, got "
+                             f"{imgs_gt.shape[1]}")
 
         att = self.attribute_embedding(objs)  # (B, O, 384)
         att_t = att[:, None].expand(B, T, *att.shape[1:])

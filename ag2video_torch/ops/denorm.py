@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ag2video_torch.ops.rasterize import LaunchCount
+from ag2video_torch.ops.constants import LaunchCount
 
 NEG_SLOPE = 0.2  # the SPADE stack's leaky ReLU (models/layers.leaky_relu_02)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

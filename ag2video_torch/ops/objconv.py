@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from ag2video_torch.ops import denorm
-from ag2video_torch.ops.rasterize import LaunchCount
+from ag2video_torch.ops.constants import LaunchCount
 
 # Launches of the CUDA kernel, counted where the kernel is launched.
 KERNEL_LAUNCHES = LaunchCount()

@@ -34,19 +34,10 @@ from typing import Optional
 
 import torch
 
+from ag2video_torch.ops.constants import LaunchCount, cached
 from ag2video_torch.ops.sampling import grid_sample_2d, linspace01
 
 TILE = 8  # reference tile size, models/layout.py:52
-
-
-class LaunchCount:
-    """A plain counter of kernel launches (or plain-version calls)."""
-
-    def __init__(self) -> None:
-        self.n = 0
-
-    def reset(self) -> None:
-        self.n = 0
 
 
 # Launches of the CUDA kernel, counted where the kernel is launched.
@@ -62,9 +53,11 @@ def _centers(S: int, device) -> torch.Tensor:
     a Python scalar into multiplication by its reciprocal, which is one ulp
     off i / (S - 1) for some i, and the ramps (slope 7 / w) amplify that
     ulp to ~1e-5 in the output. The CUDA kernel divides, so must this.
+    Built once per size and device (ops/constants.py).
     """
-    return (torch.arange(S, dtype=torch.float32, device=device)
-            / torch.tensor(float(max(S - 1, 1)), device=device))
+    return cached(("centers", S), device, lambda: (
+        torch.arange(S, dtype=torch.float32, device=device)
+        / torch.tensor(float(max(S - 1, 1)), device=device)))
 
 
 def box_coverage(boxes: torch.Tensor, H: int, W: int,

@@ -9,8 +9,8 @@ False; 'zeros' padding, where a corner outside the image weighs zero, or
 
 `resize_bilinear` is `jax.image.resize(method='bilinear')` (InceptionV3's
 input and ConvEncoder's). It lives here, in a module that imports nothing
-of the package, so that `models` and `eval` can both import it in either
-order; `eval.inception` re-exports it.
+of the package but the leaf `ops.constants`, so that `models` and `eval`
+can both import it in either order; `eval.inception` re-exports it.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ag2video_torch.ops.constants import cached
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -34,7 +36,12 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     """`jnp.linspace(0.0, 1.0, n)` in fp32 as XLA computes it: i times the
     rounded reciprocal of n - 1, the last point exactly 1 (an ulp away
     from `torch.linspace` at some points; the crop grids and the masks'
-    0.5 threshold are held to the JAX package exactly)."""
+    0.5 threshold are held to the JAX package exactly). Built once per n
+    and device (ops/constants.py)."""
+    return cached(("linspace01", n), device, lambda: _linspace01(n, device))
+
+
+def _linspace01(n: int, device) -> torch.Tensor:
     if n == 1:
         return torch.zeros(1, device=device)
     r = torch.tensor(1.0, device=device) / torch.tensor(float(n - 1),

@@ -12,18 +12,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ag2video_torch.ops.constants import cached
+
 
 def flow_grid(flow: torch.Tensor) -> torch.Tensor:
-    """(..., H, W, 2) pixel flow -> (..., H, W, 2) sampling grid in [-1, 1]."""
+    """(..., H, W, 2) pixel flow -> (..., H, W, 2) sampling grid in [-1, 1].
+    The identity grid and the scale are built once per (H, W) and device
+    (ops/constants.py)."""
     H, W = flow.shape[-3], flow.shape[-2]
     dev = flow.device
-    xs = torch.linspace(-1.0, 1.0, W, dtype=torch.float32, device=dev)
-    ys = torch.linspace(-1.0, 1.0, H, dtype=torch.float32, device=dev)
-    base = torch.stack([xs[None, :].expand(H, W), ys[:, None].expand(H, W)],
-                       dim=-1)
-    scale = torch.tensor([(W - 1.0) / 2.0, (H - 1.0) / 2.0],
-                         dtype=torch.float32, device=dev)
-    return base + flow.float() / scale
+
+    def base():
+        xs = torch.linspace(-1.0, 1.0, W, dtype=torch.float32, device=dev)
+        ys = torch.linspace(-1.0, 1.0, H, dtype=torch.float32, device=dev)
+        return torch.stack([xs[None, :].expand(H, W),
+                            ys[:, None].expand(H, W)], dim=-1)
+
+    scale = cached(("warp_scale", H, W), dev, lambda: torch.tensor(
+        [(W - 1.0) / 2.0, (H - 1.0) / 2.0], dtype=torch.float32, device=dev))
+    return cached(("warp_base", H, W), dev, base) + flow.float() / scale
 
 
 def resample(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -546,3 +546,36 @@ def test_train_step_launches_no_objconv(cuda):
     trainer.train_step(batch)
     torch.cuda.synchronize()
     assert oc.KERNEL_LAUNCHES.n == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factorized", [True, False])
+def test_generate_never_waits_on_the_card(cuda, factorized):
+    """After a warm-up call, a `generate` call makes no CUDA call that
+    waits for the card (sync debug mode 'error'), builds no device
+    constant, and gives the outputs of the former route bit for bit: the
+    model called on the whole `imgs`, every input uploaded from pageable
+    memory."""
+    from ag2video_torch.inference import generate, make_inputs
+    from ag2video_torch.inference.generate import _DTYPES
+    from ag2video_torch.models import AG2VideoModel
+    from ag2video_torch.ops import constants
+
+    cfg, vocab = _small_factorized_cfg(factorized_frontend=factorized)
+    model = AG2VideoModel(cfg, vocab)
+    batch = make_inputs(cfg, vocab, 2, 8, seed=0)
+    generate(model, batch)  # builds the kernels and the constants
+    torch.cuda.synchronize()
+    before = constants.BUILDS.n
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        imgs, boxes = generate(model, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert constants.BUILDS.n == before
+    t = {k: torch.as_tensor(batch[k]).to(cuda, d) for k, d in _DTYPES.items()}
+    with torch.no_grad():
+        out = model(t["imgs"], t["objs"], t["triplets"], t["actions"],
+                    t["boxes"], test_mode=True)
+    assert torch.equal(imgs, out["imgs_pred"])
+    assert torch.equal(boxes, out["boxes_pred"])
