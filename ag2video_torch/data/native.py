@@ -11,33 +11,16 @@ versions below (`*_plain`) are the tests' references.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import numpy as np
 
 from ag2video_torch.ops._kernels import host_library
 
-_signatures = threading.Lock()
-
 
 def library() -> ctypes.CDLL:
-    """The loaded host library with its C signatures set."""
-    built = host_library()
-    with _signatures:
-        if not built.signatures_set:
-            lib, p, i = built.lib, ctypes.c_void_p, ctypes.c_int
-            lib.agtpu_clip_resize_normalize.argtypes = [
-                p, i, i, i, p, i, i, p, p, i]
-            lib.agtpu_clip_resize_normalize.restype = None
-            lib.agtpu_pad_boxes.argtypes = [p, i, i, p, i, ctypes.c_float]
-            lib.agtpu_pad_boxes.restype = None
-            lib.agtpu_png_unfilter.argtypes = [p, i, i, i, p]
-            lib.agtpu_png_unfilter.restype = i
-            lib.agtpu_version.argtypes = []
-            lib.agtpu_version.restype = i
-            built.signatures_set = True
-    return built.lib
+    """The loaded host library, its C signatures typed."""
+    return host_library().lib
 
 
 def version() -> int:

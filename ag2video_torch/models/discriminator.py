@@ -113,9 +113,6 @@ class MultiscaleActionDiscriminator(nn.Module):
                              "input: embedding_dim must equal gconv_dim")
         self.vocab = vocab
         self.num_D = num_D
-        # 'auto' (the CUDA kernel on the card) or 'plain' (the closed form,
-        # set only to use it as the kernel's oracle); see ops/rasterize.py.
-        self.rasterizer_backend = "auto"
         num_attr = len(vocab["attributes"])
         cards = {a: max(t.values()) + 1
                  for a, t in vocab["attributes"].items()}
@@ -178,8 +175,7 @@ class MultiscaleActionDiscriminator(nn.Module):
         obj_mask = remove_dummy_objects_mask(objs)
         seg = boxes_to_layout_batch(
             fused, layout_boxes[:, :T], H, W,
-            mask=obj_mask[:, None].expand(B, T, objs.shape[1]),
-            backend=self.rasterizer_backend)
+            mask=obj_mask[:, None].expand(B, T, objs.shape[1]))
 
         imgs = (img,) if img2 is None else (img, img2)
         x = torch.cat([torch.cat([im.to(seg.dtype), seg], dim=-1)

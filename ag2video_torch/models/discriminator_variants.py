@@ -105,9 +105,6 @@ class MultiscaleDiscriminator(nn.Module):
         super().__init__()
         cards = _cardinalities(vocab)
         self.num_D = num_D
-        # 'auto' (the CUDA kernel on the card) or 'plain' (set only to use
-        # the closed form as the kernel's oracle); see ops/rasterize.py.
-        self.rasterizer_backend = "auto"
         self.attribute_embedding = AttributeEmbeddings(
             cards, embedding_dim, dtype=dtype, use_attr_fc_gen=True)
         for i in range(num_D):
@@ -128,8 +125,7 @@ class MultiscaleDiscriminator(nn.Module):
         obj_mask = remove_dummy_objects_mask(objs)
         seg = boxes_to_layout_batch(
             att_t, layout_boxes, H, W,
-            mask=obj_mask[:, None].expand(layout_boxes.shape[:-1]),
-            backend=self.rasterizer_backend)
+            mask=obj_mask[:, None].expand(layout_boxes.shape[:-1]))
         x = torch.cat([img.to(seg.dtype), seg], dim=-1)
         x = x.reshape(B * T, *x.shape[2:])
         return _multiscale(x, [getattr(self, f"discriminator_{i}")

@@ -155,11 +155,11 @@ class FactorizedNormConv(nn.Module):
         """cov_win (B, n_frames, O, H, W), vecs_win (B, n_frames, O,
         seg_dim), img (B, H, W, img_ch) -> (B, H, W, features), then the
         leaky ReLU that follows both of the frame loop's factorized convs.
-        Where `objconv.route` says so (CUDA tensors, eval mode, a BatchNorm
-        on running statistics or no subnorm, no gradient to take) one launch
-        of csrc/objconv.cu computes the contraction, the image conv, the
-        norm and the activation; otherwise the eager ops
-        (`objconv.objconv_plain`)."""
+        Where `objconv.route` says so (CUDA tensors outside `ops.plain()`,
+        eval mode, a BatchNorm on running statistics or no subnorm, no
+        gradient to take) one launch of csrc/objconv.cu computes the
+        contraction, the image conv, the norm and the activation; otherwise
+        the eager ops (`objconv.objconv_plain`)."""
         B, nF, O, H, W = cov_win.shape
         ks = self.ks
         seg_ch = self.n_frames * self.seg_dim

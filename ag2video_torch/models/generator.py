@@ -155,9 +155,6 @@ class Layout2VidGenerator(nn.Module):
                  for a, t in vocab["attributes"].items()}
         self.n_frames_G = n_frames_G
         self.factorized_frontend = factorized_frontend
-        # 'auto' (the CUDA kernel on the card) or 'plain' (the closed form,
-        # set only to use it as the kernel's oracle); see ops/rasterize.py.
-        self.rasterizer_backend = "auto"
         self.attribute_embedding = AttributeEmbeddings(
             cards, APPEARANCE_DIM // num_attr, dtype=dtype)
         seg_channels = (APPEARANCE_DIM // num_attr) * num_attr + gconv_dim
@@ -201,8 +198,7 @@ class Layout2VidGenerator(nn.Module):
             cov = box_coverage(layout_boxes, H, W, mask_bt).to(vecs.dtype)
         else:
             seg = boxes_to_layout_batch(vecs, layout_boxes, H, W,
-                                        mask=mask_bt,
-                                        backend=self.rasterizer_backend)
+                                        mask=mask_bt)
 
         n_gen = T - ncond
         if teacher_forced:

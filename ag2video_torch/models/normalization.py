@@ -425,9 +425,9 @@ class SPADE(nn.Module):
                act: bool = False) -> torch.Tensor:
         """`normalize_affine` with gamma | beta the two halves of gb (...,
         2C), then the stack's leaky ReLU if `act`. Where `denorm_ops.route`
-        says so (CUDA tensors, eval mode, running statistics, no gradient
-        to take) one launch of csrc/denorm.cu computes it, bit-equal to the
-        eager ops; otherwise the eager ops."""
+        says so (CUDA tensors outside `ops.plain()`, eval mode, running
+        statistics, no gradient to take) one launch of csrc/denorm.cu
+        computes it, bit-equal to the eager ops; otherwise the eager ops."""
         needs_grad = torch.is_grad_enabled() and (x.requires_grad
                                                   or gb.requires_grad)
         pfn = self.param_free_norm

@@ -1,8 +1,11 @@
 """Tensor ops: box transforms, IoU, the box rasterizer (CUDA kernel +
 plain version), the mask rasterizers, grid sampling, box crops and the
 flow warp. The SPADE norm's fused eval chain (CUDA kernel + plain
-version) is `ops.denorm`."""
+version) is `ops.denorm`, the factorized frontend conv's `ops.objconv`.
+Inside `plain()` all three ops take their plain versions on the card too
+(ops/_kernels.py holds that switch and the one rule of dispatch)."""
 
+from ag2video_torch.ops._kernels import plain  # noqa: F401
 from ag2video_torch.ops.boxes import (  # noqa: F401
     apply_box_transform, centers_to_extents, extents_to_centers,
     invert_box_transform, xywh_to_xyxy)

@@ -7,11 +7,19 @@ loaded with ``ctypes``, at first use and never at import. The library's file
 name carries a hash of its source and its compile command (for the host
 library also of the CPU that ``-march=native`` resolves to), so an edited
 source is rebuilt and an unchanged one is reused. Build outputs go to
-``ag2video_torch/_build/`` (git-ignored).
+``ag2video_torch/_build/`` (git-ignored). `SIGNATURES` holds each library's
+C interface, typed when the library is loaded.
+
+It also holds the one rule of dispatch. Each op with a CUDA kernel asks
+`use_kernel` whether the kernel computes a call: a CUDA tensor, a call the
+kernel takes (the op's own conditions, checked at the
+op), and no `plain()` around the call. Inside `plain()` every such op takes
+its plain version on the card too: the kernels' oracle.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,8 +51,56 @@ class KernelLibrary:
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log
-        self.signatures_set = False
 
+
+_plain_depth = 0
+
+
+@contextlib.contextmanager
+def plain():
+    """Inside, every op with a CUDA kernel takes its plain version, on the
+    card too. Process-wide; it nests."""
+    global _plain_depth
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
+def use_kernel(device_type: str, takes: bool = True) -> bool:
+    """Whether a CUDA kernel computes a call: a CUDA tensor, a call the
+    kernel `takes` (its op's own conditions) and no `plain()` around it.
+    Where it does, the op launches the kernel or raises: it never falls
+    back to its plain version."""
+    return takes and device_type == "cuda" and not _plain_depth
+
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C interface of each csrc/<name>.cu and of csrc/host.cpp ("host"):
+# {function: (argtypes, restype)}.
+SIGNATURES = {
+    "rasterize": {
+        "ag_rasterize_forward": ([_p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                                  _p], _i),
+        "ag_rasterize_smem_bytes": ([_i, _i, _i, _i], _ll),
+    },
+    "denorm": {
+        "ag_denorm_forward": ([_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _i,
+                               _p], _i),
+    },
+    "objconv": {
+        "ag_objconv_forward": ([_p, _ll, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+                                _i, _i, _i, _i, _i, _i, _i, _p], _i),
+    },
+    "host": {
+        "agtpu_clip_resize_normalize": ([_p, _i, _i, _i, _p, _i, _i, _p, _p,
+                                         _i], None),
+        "agtpu_pad_boxes": ([_p, _i, _i, _p, _i, ctypes.c_float], None),
+        "agtpu_png_unfilter": ([_p, _i, _i, _i, _p], _i),
+        "agtpu_version": ([], _i),
+    },
+}
 
 _loaded: Dict[str, KernelLibrary] = {}
 _lock = threading.Lock()
@@ -70,7 +126,8 @@ HOST_LDFLAGS = ("-shared", "-lpthread")
 
 def _build(name: str, src: Path, command, salt: str = "") -> KernelLibrary:
     """Compile `src` with `command(out_path)` (an argv) unless a library of
-    the same source, command and `salt` is built, and load it."""
+    the same source, command and `salt` is built, load it and type its C
+    functions from SIGNATURES[name]."""
     with _lock:
         lock = _build_locks.setdefault(name, threading.Lock())
     with lock:
@@ -98,14 +155,21 @@ def _build(name: str, src: Path, command, salt: str = "") -> KernelLibrary:
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-        built = KernelLibrary(ctypes.CDLL(str(so)), so,
-                              time.perf_counter() - t0, log)
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        built = KernelLibrary(lib, so, time.perf_counter() - t0, log)
         _loaded[name] = built
         return built
 
 
 def load(name: str) -> KernelLibrary:
-    """Compile ``csrc/<name>.cu`` if needed and load it."""
+    """``csrc/<name>.cu``, compiled if needed, loaded, and its C interface
+    typed from SIGNATURES."""
+    built = _loaded.get(name)
+    if built is not None:
+        return built
     src = CSRC / f"{name}.cu"
     return _build(name, src,
                   lambda out: [_nvcc(), *NVCC_FLAGS, "-o", out, str(src)])
@@ -120,7 +184,7 @@ def _cxx() -> str:
 
 
 def host_library() -> KernelLibrary:
-    """``csrc/host.cpp``, compiled by g++ if needed, and loaded. The
+    """``csrc/host.cpp``, compiled by g++ if needed, loaded and typed. The
     library is keyed on the target that ``-march=native`` resolves to, so a
     build directory shared between machines never hands one CPU another's
     instructions."""
@@ -132,43 +196,3 @@ def host_library() -> KernelLibrary:
     src = CSRC / "host.cpp"
     return _build("host", src, lambda out: [
         cxx, *HOST_CXXFLAGS, str(src), "-o", out, *HOST_LDFLAGS], target)
-
-
-def rasterize_library() -> KernelLibrary:
-    """The box rasterizer (csrc/rasterize.cu) with its C signatures set."""
-    built = load("rasterize")
-    if not built.signatures_set:
-        lib = built.lib
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ag_rasterize_forward.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.ag_rasterize_forward.restype = ctypes.c_int
-        lib.ag_rasterize_smem_bytes.argtypes = [i, i, i, i]
-        lib.ag_rasterize_smem_bytes.restype = ctypes.c_longlong
-        built.signatures_set = True
-    return built
-
-
-def denorm_library() -> KernelLibrary:
-    """The fused SPADE denormalization (csrc/denorm.cu) with its C
-    signature set."""
-    built = load("denorm")
-    if not built.signatures_set:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        built.lib.ag_denorm_forward.argtypes = [p, p, p, p, p, ll, i, i, i,
-                                                i, i, p]
-        built.lib.ag_denorm_forward.restype = ctypes.c_int
-        built.signatures_set = True
-    return built
-
-
-def objconv_library() -> KernelLibrary:
-    """The fused factorized frontend conv (csrc/objconv.cu) with its C
-    signatures set."""
-    built = load("objconv")
-    if not built.signatures_set:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        built.lib.ag_objconv_forward.argtypes = [
-            p, ll, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        built.lib.ag_objconv_forward.restype = ctypes.c_int
-        built.signatures_set = True
-    return built

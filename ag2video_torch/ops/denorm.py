@@ -18,8 +18,9 @@ Three pieces live here:
   contiguity and device, raises on anything the kernel does not take, and
   launches it. It never falls back;
 * `route`, which tells `SPADE.denorm` (models/normalization.py) whether
-  the kernel computes a call, from the device, the mode, the norm's kind
-  and grad mode.
+  the kernel computes a call: the kernel's conditions (the mode, the
+  norm's kind, grad mode) put to the one rule of `_kernels.use_kernel`
+  (the device, and no `ops.plain()` around the call).
 
 The kernel replaces no TPU kernel: XLA fused this chain on the TPU. It
 rounds where the eager chain rounds, so its output is bit-equal to
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ag2video_torch.ops import _kernels
 from ag2video_torch.ops.constants import LaunchCount
 
 NEG_SLOPE = 0.2  # the SPADE stack's leaky ReLU (models/layers.leaky_relu_02)
@@ -53,15 +55,15 @@ def denorm_plain(x: torch.Tensor, gb: torch.Tensor, mean: torch.Tensor,
 
 def route(device_type: str, train: bool, running_stats: bool,
           needs_grad: bool) -> str:
-    """'kernel' for CUDA tensors in eval mode, normalised by running
-    statistics (a batch param-free norm: the instance and group norms take
-    per-sample ones), with no gradient to take (the kernel has no
-    backward); 'plain' (the eager ops) otherwise. On the 'kernel' route
-    `denorm_fused` launches the kernel or raises: it never hands a call
-    back to the eager ops."""
-    kernel = (device_type == "cuda" and not train and running_stats
-              and not needs_grad)
-    return "kernel" if kernel else "plain"
+    """'kernel' where `_kernels.use_kernel` gives the call to the kernel
+    (a CUDA tensor, no `ops.plain()` around it) and the kernel takes it:
+    eval mode, normalised by running statistics (a batch param-free norm:
+    the instance and group norms take per-sample ones), with no gradient
+    to take (the kernel has no backward); 'plain' (the eager ops)
+    otherwise. On the 'kernel' route `denorm_fused` launches the kernel or
+    raises: it never hands a call back to the eager ops."""
+    takes = not train and running_stats and not needs_grad
+    return "kernel" if _kernels.use_kernel(device_type, takes) else "plain"
 
 
 def denorm_fused(x: torch.Tensor, gb: torch.Tensor, mean: torch.Tensor,
@@ -71,8 +73,6 @@ def denorm_fused(x: torch.Tensor, gb: torch.Tensor, mean: torch.Tensor,
     x (..., C) float32 | bfloat16 and gb (..., 2C) of x's type, mean and
     mul (C,) float32, all contiguous and on one CUDA device; no gradient
     may be required of x or gb."""
-    from ag2video_torch.ops._kernels import denorm_library
-
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the denorm kernel takes float32/bfloat16 x, got "
                         f"{x.dtype}")
@@ -109,7 +109,7 @@ def denorm_fused(x: torch.Tensor, gb: torch.Tensor, mean: torch.Tensor,
     if rows * C // vec >= 2 ** 31:
         raise ValueError(f"x has {x.numel()} elements: too many for one "
                          f"launch")
-    err = denorm_library().lib.ag_denorm_forward(
+    err = _kernels.load("denorm").lib.ag_denorm_forward(
         x.data_ptr(), gb.data_ptr(), mean.data_ptr(), mul.data_ptr(),
         y.data_ptr(), rows, C, KERNEL_DTYPES[x.dtype], vec, int(act),
         x.get_device(), torch.cuda.current_stream(x.device).cuda_stream)

@@ -19,9 +19,10 @@ Three pieces live here, as in ops/denorm.py:
   and device, raises on anything the kernel does not take, and launches it.
   It never falls back;
 * `route`, which tells `FactorizedNormConv.forward` whether the kernel
-  computes a call: `denorm.route` itself (a CUDA tensor, eval mode, running
-  statistics or no subnorm, no gradient to take), so every eval call of the
-  module on the card launches the kernel.
+  computes a call: `denorm.route` itself (a CUDA tensor and no
+  `ops.plain()` around the call, eval mode, running statistics or no
+  subnorm, no gradient to take), so every eval call of the module on the
+  card launches the kernel.
 
 The kernel replaces no TPU kernel: XLA fused this chain on the TPU. It
 rounds where the eager chain rounds; only the order of its fp32 sums
@@ -36,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from ag2video_torch.ops import denorm
+from ag2video_torch.ops import _kernels, denorm
 from ag2video_torch.ops.constants import LaunchCount
 
 # Launches of the CUDA kernel, counted where the kernel is launched.
@@ -45,11 +46,11 @@ KERNEL_LAUNCHES = LaunchCount()
 KS = 3  # the only kernel size the kernel takes
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# 'kernel' for a CUDA tensor in eval mode, a BatchNorm on running
-# statistics or no subnorm, and no gradient to take (the kernel has no
-# backward); 'plain' (the eager ops) otherwise. On the 'kernel' route
-# `objconv_fused` launches the kernel or raises: it never hands a call back
-# to the eager ops.
+# 'kernel' for a CUDA tensor outside `ops.plain()`, in eval mode, a
+# BatchNorm on running statistics or no subnorm, and no gradient to take
+# (the kernel has no backward); 'plain' (the eager ops) otherwise. On the
+# 'kernel' route `objconv_fused` launches the kernel or raises: it never
+# hands a call back to the eager ops.
 route = denorm.route
 
 
@@ -86,8 +87,6 @@ def objconv_fused(cov: torch.Tensor, wk: torch.Tensor, img: torch.Tensor,
     else none; `shift` ((F,) fp32) its bias, or the conv's bias. Returns the
     leaky ReLU of the result, (B, H, W, F) in the compute type. No gradient
     may be required of any input."""
-    from ag2video_torch.ops._kernels import objconv_library
-
     kdt = cov.dtype
     if kdt not in KERNEL_DTYPES:
         raise TypeError(f"the objconv kernel takes float32/bfloat16 cov, got "
@@ -148,7 +147,7 @@ def objconv_fused(cov: torch.Tensor, wk: torch.Tensor, img: torch.Tensor,
                          "no gradient to take")
     out = torch.empty(B, H, W, F_, dtype=kdt, device=dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    err = objconv_library().lib.ag_objconv_forward(
+    err = _kernels.load("objconv").lib.ag_objconv_forward(
         cov.data_ptr(), cov.stride(0), wk.data_ptr(), img.data_ptr(),
         w_img.data_ptr(), ptr(mean), ptr(mul), ptr(shift), out.data_ptr(),
         B, K, H, W, F_, C, int(mean is not None), KERNEL_DTYPES[kdt],

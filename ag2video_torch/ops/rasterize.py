@@ -12,8 +12,10 @@ Three pieces live here:
 * the CUDA kernel's `torch.autograd.Function` (forward: csrc/rasterize.cu;
   backward: autograd of the plain closed form, `dmask` = None, mirroring the
   JAX kernel's `_bwd`);
-* the dispatch, `boxes_to_layout_batch`: a CPU tensor takes the plain version,
-  a CUDA tensor launches the kernel or raises. It never falls back.
+* the dispatch, `boxes_to_layout_batch`: where `_kernels.use_kernel` says so
+  (a CUDA tensor, no `ops.plain()` around the call) it launches the kernel
+  or raises, and never falls back; otherwise it takes the plain version.
+  The kernel takes every call: its autograd.Function has a backward.
 
 Beside them, two rasterizers that are XLA code in the JAX package and plain
 PyTorch here: `boxes_to_mask` (the hard union of the boxes) and
@@ -34,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ag2video_torch.ops import _kernels
 from ag2video_torch.ops.constants import LaunchCount, cached
 from ag2video_torch.ops.sampling import grid_sample_2d, linspace01
 
@@ -107,8 +110,6 @@ def _kernel_forward(vecs: torch.Tensor, boxes: torch.Tensor,
 
     vecs (N, O, D) float32|bfloat16 contiguous; boxes (N, O, 4); mask (N, O).
     """
-    from ag2video_torch.ops._kernels import rasterize_library
-
     if not vecs.is_cuda:
         raise ValueError("the CUDA rasterizer needs CUDA tensors")
     if vecs.dtype == torch.float32:
@@ -137,7 +138,7 @@ def _kernel_forward(vecs: torch.Tensor, boxes: torch.Tensor,
     boxes = boxes.to(torch.float32).contiguous()
     mask = mask.to(torch.float32).contiguous()
 
-    lib = rasterize_library().lib
+    lib = _kernels.load("rasterize").lib
     smem = lib.ag_rasterize_smem_bytes(O, D, W, dtype_code)
     if smem > 227 * 1024:
         raise ValueError(f"O={O} x W={W} needs {smem} bytes of shared "
@@ -180,24 +181,21 @@ class RasterizeFunction(torch.autograd.Function):
 
 def boxes_to_layout_batch(vecs: torch.Tensor, boxes: torch.Tensor, H: int,
                           W: Optional[int] = None,
-                          mask: Optional[torch.Tensor] = None,
-                          backend: str = "auto") -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Batched rasterization over arbitrary leading dims.
 
     vecs: (..., O, D); boxes: (..., O, 4); mask: (..., O).
     Returns (..., H, W, D) in vecs.dtype.
 
-    backend: 'auto' launches the CUDA kernel on a CUDA tensor (or raises)
-    and takes the plain version on a CPU tensor; 'plain' takes the closed
-    form on any device (the kernel's oracle on the card).
+    The CUDA kernel on a CUDA tensor (or it raises); the closed form on the
+    CPU, and on the card inside `ops.plain()` (the kernel's oracle).
     """
     if W is None:
         W = H
     if mask is None:
         mask = (boxes != 0).any(dim=-1)
-    if backend not in ("auto", "plain"):
-        raise ValueError(f"unknown rasterizer backend {backend!r}")
-    if backend == "plain" or vecs.device.type == "cpu":
+    if not _kernels.use_kernel(vecs.device.type):
         PLAIN_CALLS.n += 1
         return boxes_to_layout_plain(vecs, boxes, H, W, mask)
 

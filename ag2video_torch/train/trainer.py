@@ -183,12 +183,6 @@ class Trainer:
     def skipped_nan(self) -> int:
         return self.state.skipped_nan
 
-    def set_rasterizer_backend(self, backend: str) -> None:
-        """'auto' (the CUDA kernel on the card) or 'plain' (its closed form,
-        the kernel's oracle) for every rasterizer call of G and D."""
-        self.state.model.layout_to_video.rasterizer_backend = backend
-        self.state.disc.rasterizer_backend = backend
-
     def _batch(self, batch: Any, skip_imgs: bool = False
                ) -> Dict[str, torch.Tensor]:
         b: Mapping[str, Any] = batch.as_dict() if hasattr(batch, "as_dict") \

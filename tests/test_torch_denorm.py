@@ -3,12 +3,13 @@
 The fused CUDA kernel runs only on the card (tests/test_torch_gpu.py). Here:
 the plain chain is the eager sequence it replaces, bit for bit; the new
 dispatch gives today's results on the CPU, in eval and in train mode; the
-route is chosen by device, mode, norm kind and grad mode; every norm of
-the generator hands the kernel inputs it takes; the cached running
-statistics follow the buffers; and the wrapper refuses what the kernel
-does not take before it looks for a card.
+route is chosen by device, mode, norm kind, grad mode and the
+`ops.plain()` switch; every norm of the generator hands the kernel inputs
+it takes; the cached running statistics follow the buffers; and the
+wrapper refuses what the kernel does not take before it looks for a card.
 """
 
+import contextlib
 import copy
 
 import pytest
@@ -17,6 +18,8 @@ import torch
 from ag2video_torch.models.layers import leaky_relu_02
 from ag2video_torch.models.normalization import SPADE
 from ag2video_torch.models.spade import SPADEResnetBlock
+from ag2video_torch import ops
+from ag2video_torch.ops import _kernels
 from ag2video_torch.ops import denorm as dn
 from ag2video_torch.weights import init_params
 
@@ -120,10 +123,10 @@ def test_upsample_nearest_is_contiguous(hw):
 
 @pytest.mark.parametrize("size", [32, 64])
 def test_every_generator_norm_is_one_the_kernel_takes(monkeypatch, size):
-    """Each of an eval SPADEGenerator's 18 norms, given the kernel's route,
-    hands `denorm_fused` inputs it takes (contiguous, one type, 2C
-    channels), at 32x32 (a 1x1 latent) as at 64x64; the result is the
-    eager one."""
+    """Each of an eval SPADEGenerator's 18 norms, with the CPU standing in
+    for the kernels' device, hands `denorm_fused` inputs it takes
+    (contiguous, one type, 2C channels), at 32x32 (a 1x1 latent) as at
+    64x64; the result is the eager one."""
     from ag2video_torch.models.spade import SPADEGenerator
 
     net = init_params(SPADEGenerator(12, ngf=8, dtype=BF16), 0).eval()
@@ -140,7 +143,9 @@ def test_every_generator_norm_is_one_the_kernel_takes(monkeypatch, size):
             taken.append(tuple(x.shape))
             return dn.denorm_plain(x, gb, mean, mul, act)
 
-        monkeypatch.setattr(dn, "route", lambda *facts: "kernel")
+        rule = _kernels.use_kernel  # the CPU stands in for the card
+        monkeypatch.setattr(_kernels, "use_kernel", lambda dev, takes=True:
+                            rule("cuda" if dev == "cpu" else dev, takes))
         monkeypatch.setattr(dn, "denorm_fused", checked)
         got = net(layout)
     assert len(taken) == 18
@@ -161,25 +166,29 @@ def test_dispatch_keeps_gradients_on_cpu():
 
 
 BF16, F32 = torch.bfloat16, torch.float32
-# (device, train, running stats, needs grad) -> route
+# (device, train, running stats, needs grad, inside ops.plain()) -> route
 ROUTES = [
-    (("cuda", False, True, False), "kernel"),
-    (("cpu", False, True, False), "plain"),
-    (("meta", False, True, False), "plain"),
-    (("cuda", True, True, False), "plain"),
-    (("cuda", False, False, False), "plain"),
-    (("cuda", False, True, True), "plain"),
-    (("cuda", True, False, False), "plain"),
-    (("cuda", True, True, True), "plain"),
-    (("cpu", True, True, False), "plain"),
-    (("cpu", False, False, False), "plain"),
-    (("cpu", False, True, True), "plain"),
+    (("cuda", False, True, False, False), "kernel"),
+    (("cpu", False, True, False, False), "plain"),
+    (("meta", False, True, False, False), "plain"),
+    (("cuda", True, True, False, False), "plain"),
+    (("cuda", False, False, False, False), "plain"),
+    (("cuda", False, True, True, False), "plain"),
+    (("cuda", True, False, False, False), "plain"),
+    (("cuda", True, True, True, False), "plain"),
+    (("cpu", True, True, False, False), "plain"),
+    (("cpu", False, False, False, False), "plain"),
+    (("cpu", False, True, True, False), "plain"),
+    (("cuda", False, True, False, True), "plain"),
 ]
 
 
 @pytest.mark.parametrize("facts,want", ROUTES)
 def test_route(facts, want):
-    assert dn.route(*facts) == want
+    *facts, switched = facts
+    with ops.plain() if switched else contextlib.nullcontext():
+        assert dn.route(*facts) == want
+    assert dn.route("cuda", False, True, False) == "kernel"
 
 
 @pytest.mark.parametrize("kind,running", [("syncbatch", True),

@@ -2,23 +2,25 @@
 SPADE denormalization and the fused factorized frontend conv), and of an
 op whose CUDA backward the port works around (marker `gpu`).
 
-They skip without a CUDA card. This file imports neither jax nor the JAX
-package, so it also runs where JAX is absent; tests/conftest.py imports jax,
-so there run it as
+Each kernel's tolerance against its plain version is defined once, in
+torch_tools/kernel_checks.py; `ops.plain()` is the one way to force the
+plain version. The tests skip without a CUDA card. This file imports neither jax
+nor the JAX package, so it also runs where JAX is absent;
+tests/conftest.py imports jax, so there run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
+from ag2video_torch import ops
 from ag2video_torch.ops import denorm as dn
 from ag2video_torch.ops import rasterize as tr
-
-F32_TOL = dict(rtol=1e-5, atol=1e-5)
-# bf16: kernel and plain round fp32 sums taken in another order, so an
-# output may differ by one bf16 rounding (at most 2^-7 relative).
-BF16_TOL = dict(rtol=1e-2, atol=1e-5)
+from torch_tools.kernel_checks import (BF16_TOL, F32_TOL, hold_objconv,
+                                       same_bits)
 
 
 @pytest.fixture
@@ -54,6 +56,8 @@ SHAPES = [
     (2, 11, 520, 40, 48, torch.bfloat16),     # D past a 64-channel chunk
     (2, 11, 100, 37, 50, torch.bfloat16),     # H, W ragged; D % 8 != 0
     (2, 20, 30, 20, 24, torch.bfloat16),      # few channels, O > 16
+    (9, 12, 256, 256, 256, torch.bfloat16),   # disc: the action D's call
+    (12, 12, 512, 256, 256, torch.bfloat16),  # msd: MultiscaleDiscriminator
 ]
 
 
@@ -65,8 +69,9 @@ def test_kernel_matches_plain(cuda, N, O, D, H, W, dtype):
     k = tr.boxes_to_layout_batch(vecs, boxes, H, W, mask=mask)
     torch.cuda.synchronize()
     assert tr.KERNEL_LAUNCHES.n == before + 1
-    p = tr.boxes_to_layout_batch(vecs, boxes, H, W, mask=mask,
-                                 backend="plain")
+    with ops.plain():
+        p = tr.boxes_to_layout_batch(vecs, boxes, H, W, mask=mask)
+    assert tr.KERNEL_LAUNCHES.n == before + 1
     assert k.dtype == dtype and k.shape == (N, H, W, D)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(k.float(), p.float(), **tol)
@@ -80,22 +85,35 @@ def test_kernel_masked_frame_is_zero(cuda, dtype):
     k = tr.boxes_to_layout_batch(vecs, boxes, 40, 40, mask=mask)
     torch.cuda.synchronize()
     assert bool((k[1] == 0).all())
-    p = tr.boxes_to_layout_batch(vecs, boxes, 40, 40, mask=mask,
-                                 backend="plain")
+    with ops.plain():
+        p = tr.boxes_to_layout_batch(vecs, boxes, 40, 40, mask=mask)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(k.float(), p.float(), **tol)
 
 
 @pytest.mark.gpu
-def test_kernel_gradients_match_plain(cuda):
-    vecs, boxes, mask = _inputs(3, 6, 128, torch.float32, cuda, seed=1)
-    g = torch.randn(3, 32, 32, 128, device=cuda)
+@pytest.mark.parametrize("N,O,D,H,dtype", [
+    (3, 6, 128, 32, torch.float32),
+    # disc: the action D's call, bf16 vecs that carry a gradient and the
+    # ground-truth boxes, which do not.
+    (9, 12, 256, 256, torch.bfloat16),
+])
+def test_kernel_gradients_match_plain(cuda, N, O, D, H, dtype):
+    vecs, boxes, mask = _inputs(N, O, D, dtype, cuda, seed=1)
+    g = torch.randn(N, H, H, D, device=cuda, dtype=dtype)
+    with_boxes = dtype == torch.float32
     grads = []
-    for backend in ("auto", "plain"):
+    for plain in (False, True):
         v = vecs.clone().requires_grad_(True)
-        b = boxes.clone().requires_grad_(True)
-        out = tr.boxes_to_layout_batch(v, b, 32, mask=mask, backend=backend)
-        grads.append(torch.autograd.grad((out * g).sum(), (v, b)))
+        b = boxes.clone().requires_grad_(with_boxes)
+        with ops.plain() if plain else contextlib.nullcontext():
+            out = tr.boxes_to_layout_batch(v, b, H, mask=mask)
+        grads.append(torch.autograd.grad((out.float() * g).sum(),
+                                         (v, b) if with_boxes else (v,)))
+    if not with_boxes:
+        torch.testing.assert_close(grads[0][0].float(), grads[1][0].float(),
+                                   **BF16_TOL)
+        return
     torch.testing.assert_close(grads[0][0], grads[1][0], **F32_TOL)
     torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-4,
                                atol=1e-4)
@@ -150,16 +168,6 @@ for _blk, _h, _fin, _fout in (("head_0", 8, 1024, 1024),
         SPADE_NORMS.append((f"{_blk}.norm_s", _h, _fin, False))
     SPADE_NORMS.append((f"{_blk}.norm_0", _h, _fin, True))
     SPADE_NORMS.append((f"{_blk}.norm_1", _h, min(_fin, _fout), True))
-
-
-def same_bits(a, b):
-    """Bit-equal, NaNs included; the message counts what differs."""
-    assert a.dtype == b.dtype and a.shape == b.shape
-    iview = torch.int16 if a.element_size() == 2 else torch.int32
-    diff = a.view(iview) != b.view(iview)
-    n = int(diff.sum())
-    both_nan = int((diff & a.isnan() & b.isnan()).sum())
-    assert n == 0, f"{n} elements differ ({both_nan} of them NaN in both)"
 
 
 def _denorm_inputs(B, H, C, dtype, device, seed):
@@ -264,8 +272,8 @@ def test_spade_generator_with_the_kernel_is_bit_equal(cuda, monkeypatch,
                                                           act))
         plain = net(layout)
         # And today's ops: normalize_affine's sliced chain, then the ReLU.
-        monkeypatch.setattr(dn, "route", lambda *facts: "plain")
-        eager = net(layout)
+        with ops.plain():
+            eager = net(layout)
     torch.cuda.synchronize()
     same_bits(fused, plain)
     same_bits(fused, eager)
@@ -294,38 +302,8 @@ def test_spade_denorm_on_the_card_is_todays_sequence(cuda, dtype):
             same_bits(got, leaky_relu_02(want) if act else want)
 
 
-@pytest.mark.gpu
-def test_generate_launches_the_kernel_for_every_norm_of_every_frame(cuda):
-    from ag2video_torch import Config, get_vocab
-    from ag2video_torch.inference import generate, make_inputs
-    from ag2video_torch.models import AG2VideoModel
-
-    vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", image_size=(64, 64), embedding_dim=16,
-                 gconv_dim=16, gconv_hidden_dim=32, ngf=8, nff=4,
-                 n_blocks_F=1, n_downsample_F=2).derive(vocab)
-    model = AG2VideoModel(cfg, vocab)
-    T = 8
-    batch = make_inputs(cfg, vocab, 2, T, seed=0)
-    generate(model, batch)  # builds the kernel
-    before = dn.KERNEL_LAUNCHES.n
-    imgs, _ = generate(model, batch)
-    torch.cuda.synchronize()
-    assert dn.KERNEL_LAUNCHES.n - before == 18 * (T - cfg.n_frames_G + 1)
-    assert dn.KERNEL_LAUNCHES.n - before == 126
-    assert bool(torch.isfinite(imgs).all())
-
-
 # The fused factorized frontend conv (csrc/objconv.cu) against its plain
-# chain. Only the order of the fp32 sums differs (tensor cores against the
-# fp32 bmm), which now and then flips one bf16 rounding of the conv's
-# output before the norm: at most 0.1% of the elements may differ at all,
-# and the whole by at most 1e-3 relative L2. In fp32 compute nothing is
-# rounded to bf16 and every element may differ in its last bits: the whole
-# by at most 1e-5 relative L2 (TF32 off in the plain chain's cuDNN conv).
-OBJCONV_DIFFER = 1e-3
-OBJCONV_REL_L2 = 1e-3
-OBJCONV_REL_L2_FP32 = 1e-5
+# chain, within torch_tools/kernel_checks.py's OBJCONV_* bounds.
 # (B, nF, O, H, W, F, C): the B=16 cell's conv_dim_in and flow_down_0,
 # ragged ones (a partial edge tile, widths that are and are not a multiple
 # of 8, 64- and 32-feature blocks, K not a multiple of 8) and the largest
@@ -380,15 +358,6 @@ def _objconv_inputs(B, nF, O, H, W, F, C, device, seed,
     return (to(cov), to(wk), to(img), to(w_img), bn.to(device), to(bias))
 
 
-def _differ(k, p):
-    """(share of elements that differ, relative L2 of the difference)."""
-    assert k.dtype == p.dtype and k.shape == p.shape
-    ints = torch.int16 if k.dtype == torch.bfloat16 else torch.int32
-    share = float((k.view(ints) != p.view(ints)).float().mean())
-    rel = float((k.float() - p.float()).norm() / p.float().norm())
-    return share, rel
-
-
 def _objconv_against_plain(cuda, dtype, B, nF, O, H, W, F, C):
     """The kernel against `objconv_plain`, with the BatchNorm and with a
     bias alone, one launch each."""
@@ -412,12 +381,7 @@ def _objconv_against_plain(cuda, dtype, B, nF, O, H, W, F, C):
                 p = oc.objconv_plain(cov4, wk, img, w_img,
                                      bn if norm else None,
                                      None if norm else bias, False)
-                share, rel = _differ(k, p)
-                if dtype == torch.bfloat16:
-                    assert share <= OBJCONV_DIFFER, (norm, share, rel)
-                    assert rel <= OBJCONV_REL_L2, (norm, share, rel)
-                else:
-                    assert rel <= OBJCONV_REL_L2_FP32, (norm, share, rel)
+                hold_objconv(k, p, f"norm={norm}")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -476,9 +440,13 @@ def _small_factorized_cfg(**over):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("factorized", [True, False])
-def test_generate_launches_objconv_twice_a_frame(cuda, factorized):
-    """14 launches a T=8 factorized `generate` call (flow_down_0 and
-    conv_dim_in of each of 7 frames); none on the dense frontend."""
+def test_generate_launches_each_kernel_per_call(cuda, factorized):
+    """A T=8 `generate` call launches the denorm kernel for every norm of
+    every generated frame (18 x 7 = 126); the objconv kernel twice a frame
+    on the factorized frontend (flow_down_0 and conv_dim_in: 14) and never
+    on the dense one; the rasterizer once on the dense frontend (all T
+    layouts) and never on the factorized one; and the plain rasterizer
+    never. Inside `ops.plain()` none of the three kernels launches."""
     from ag2video_torch.inference import generate, make_inputs
     from ag2video_torch.models import AG2VideoModel
     from ag2video_torch.ops import objconv as oc
@@ -489,12 +457,23 @@ def test_generate_launches_objconv_twice_a_frame(cuda, factorized):
     T = 8
     batch = make_inputs(cfg, vocab, 2, T, seed=0)
     generate(model, batch)  # builds the kernels
-    before = oc.KERNEL_LAUNCHES.n
-    imgs, _ = generate(model, batch)
-    torch.cuda.synchronize()
-    want = 2 * (T - cfg.n_frames_G + 1) if factorized else 0
-    assert oc.KERNEL_LAUNCHES.n - before == want == (14 if factorized else 0)
-    assert bool(torch.isfinite(imgs).all())
+    counts = (tr.KERNEL_LAUNCHES, tr.PLAIN_CALLS, dn.KERNEL_LAUNCHES,
+              oc.KERNEL_LAUNCHES)
+
+    def launches():
+        for c in counts:
+            c.reset()
+        imgs, _ = generate(model, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(imgs).all())
+        return tuple(c.n for c in counts)
+
+    frames = T - cfg.n_frames_G + 1
+    assert (18 * frames, 2 * frames) == (126, 14)
+    # (rasterizer, plain rasterizer calls, denorm, objconv)
+    assert launches() == ((0, 0, 126, 14) if factorized else (1, 0, 126, 0))
+    with ops.plain():
+        assert launches() == (0, 0 if factorized else 1, 0, 0)
 
 
 @pytest.mark.gpu
@@ -502,7 +481,7 @@ def test_fp32_generate_launches_objconv_and_matches_the_eager_ops(
         cuda, monkeypatch):
     """In fp32 compute too, every generated frame launches the kernel
     twice (its CUDA-core path), and the frames match those of the eager
-    ops (the route forced to 'plain', TF32 off) to fp32 rounding."""
+    ops (inside `ops.plain()`, TF32 off) to fp32 rounding."""
     from ag2video_torch.inference import generate, make_inputs
     from ag2video_torch.models import AG2VideoModel
     from ag2video_torch.ops import objconv as oc
@@ -521,8 +500,8 @@ def test_fp32_generate_launches_objconv_and_matches_the_eager_ops(
     imgs, _ = generate(model, batch)
     torch.cuda.synchronize()
     assert oc.KERNEL_LAUNCHES.n - before == 2 * (T - cfg.n_frames_G + 1)
-    monkeypatch.setattr(oc, "route", lambda *facts: "plain")
-    want, _ = generate(model, batch)
+    with ops.plain():
+        want, _ = generate(model, batch)
     assert oc.KERNEL_LAUNCHES.n - before == 2 * (T - cfg.n_frames_G + 1)
     rel = float((imgs - want).norm() / want.norm())
     assert rel <= 1e-4, rel

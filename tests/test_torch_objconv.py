@@ -4,13 +4,15 @@ FactorizedNormConv.forward) on the CPU.
 The fused CUDA kernel runs only on the card (tests/test_torch_gpu.py). Here:
 the plain chain is the module's former forward and leaky ReLU, bit for bit;
 the dispatch gives today's results on the CPU in eval and train mode and
-with a gradient to take; the route is chosen by device, mode, norm kind
-and grad mode alone; the module hands the kernel inputs it takes, in bf16
-and fp32 compute and at any width, whose (mean, mul, shift) give the plain
-chain's norm; the cached norm affine follows the buffers; and the wrapper
-refuses what the kernel does not take before it looks for a card.
+with a gradient to take; the route is chosen by device, mode, norm kind,
+grad mode and the `ops.plain()` switch alone; the module hands the kernel
+inputs it takes, in bf16 and fp32 compute and at any width, whose (mean,
+mul, shift) give the plain chain's norm; the cached norm affine follows
+the buffers; and the wrapper refuses what the kernel does not take before
+it looks for a card.
 """
 
+import contextlib
 import copy
 
 import pytest
@@ -20,7 +22,8 @@ from ag2video_torch.models.factorized import (FactorizedNormConv,
                                               object_basis_conv)
 from ag2video_torch.models.layers import conv2d_nhwc, leaky_relu_02
 from ag2video_torch.models.normalization import BatchNorm
-from ag2video_torch.ops import denorm
+from ag2video_torch import ops
+from ag2video_torch.ops import _kernels, denorm
 from ag2video_torch.ops import objconv as oc
 from ag2video_torch.weights import init_params
 
@@ -121,21 +124,25 @@ def test_dispatch_keeps_gradients_on_cpu(norm):
     assert torch.equal(gv, want)
 
 
-# (device, train, running stats, needs grad) -> route
+# (device, train, running stats, needs grad, inside ops.plain()) -> route
 ROUTES = [
-    (("cuda", False, True, False), "kernel"),
-    (("cpu", False, True, False), "plain"),
-    (("meta", False, True, False), "plain"),
-    (("cuda", True, True, False), "plain"),
-    (("cuda", False, False, False), "plain"),
-    (("cuda", False, True, True), "plain"),
-    (("cuda", True, False, True), "plain"),
+    (("cuda", False, True, False, False), "kernel"),
+    (("cpu", False, True, False, False), "plain"),
+    (("meta", False, True, False, False), "plain"),
+    (("cuda", True, True, False, False), "plain"),
+    (("cuda", False, False, False, False), "plain"),
+    (("cuda", False, True, True, False), "plain"),
+    (("cuda", True, False, True, False), "plain"),
+    (("cuda", False, True, False, True), "plain"),
 ]
 
 
 @pytest.mark.parametrize("facts,want", ROUTES)
 def test_route(facts, want):
-    assert oc.route(*facts) == want
+    *facts, switched = facts
+    with ops.plain() if switched else contextlib.nullcontext():
+        assert oc.route(*facts) == want
+    assert oc.route("cuda", False, True, False) == "kernel"
 
 
 def test_route_is_the_denorm_kernels():
@@ -199,7 +206,9 @@ def _hand_the_kernel(monkeypatch, norm, F, dtype, img_ch):
 
     with torch.no_grad():
         want = conv(cov, vecs, img)
-        monkeypatch.setattr(oc, "route", lambda *facts: "kernel")
+        rule = _kernels.use_kernel  # the CPU stands in for the card
+        monkeypatch.setattr(_kernels, "use_kernel", lambda dev, takes=True:
+                            rule("cuda" if dev == "cpu" else dev, takes))
         monkeypatch.setattr(oc, "objconv_fused", checked)
         got = conv(cov, vecs, img)
     assert taken == [(F,)]

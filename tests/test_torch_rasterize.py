@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ag2video_tpu.ops import rasterize as jr
 from ag2video_torch.ops import rasterize as tr
+from torch_tools.kernel_checks import BF16_TOL
 
 torch.set_num_threads(2)
 
@@ -170,11 +171,32 @@ def test_cpu_dispatch_counts_plain_and_never_launches(rng):
     assert tr.KERNEL_LAUNCHES.n == 0
 
 
+def test_dispatch_asks_the_one_rule(rng, monkeypatch):
+    """With the CPU standing in for the kernels' device the dispatch hands
+    the call to the kernel's autograd.Function, which refuses CPU tensors;
+    inside `ops.plain()` it takes the plain version."""
+    from ag2video_torch import ops
+    from ag2video_torch.ops import _kernels
+
+    vecs, boxes, mask = (torch.from_numpy(a) for a in _inputs(rng, 1, 3, 8))
+    rule = _kernels.use_kernel  # the CPU stands in for the card
+    monkeypatch.setattr(_kernels, "use_kernel", lambda dev, takes=True:
+                        rule("cuda" if dev == "cpu" else dev, takes))
+    tr.KERNEL_LAUNCHES.reset()
+    tr.PLAIN_CALLS.reset()
+    with pytest.raises(ValueError, match="CUDA"):
+        tr.boxes_to_layout_batch(vecs, boxes, 8, mask=mask)
+    with ops.plain():
+        out = tr.boxes_to_layout_batch(vecs, boxes, 8, mask=mask)
+    assert tr.PLAIN_CALLS.n == 1 and tr.KERNEL_LAUNCHES.n == 0
+    assert torch.equal(out, tr.boxes_to_layout_plain(vecs, boxes, 8, 8,
+                                                     mask))
+
+
 # The card's bf16 kernel (csrc/rasterize.cu) splits the fp32 coverage into
 # bf16 terms, contracts each with the bf16 vecs on the tensor cores (exact
 # products, fp32 sums) and rounds once to bf16. Its tolerance against the
-# plain version on the card (chip_smoke.py, tests/test_torch_gpu.py):
-BF16_TOL = dict(rtol=1e-2, atol=1e-5)
+# plain version on the card is kernel_checks.BF16_TOL.
 KERNEL_TERMS = 3
 
 

@@ -1,42 +1,29 @@
-#!/usr/bin/env python3
-"""Where a full-width `generate` call spends its device time, per frontend.
+"""Device time of repeated calls, by kernel category, under `torch.profiler`.
 
-    python3 torch_tools/profile_generate.py [factorized] [dense]
+`profile_calls(fn, label)` makes 2 warm-up calls of `fn`, times 5
+unprofiled calls, each between two `torch.cuda.synchronize()`, then traces
+3 calls. It prints, per call: device kernel time by category, the count of
+device kernels and of aten ops (all levels), and the device-busy share
+(kernel time over the unprofiled calls' median; the profiler's own overhead
+inflates the profiled calls' host time), then the 12 largest kernels, and
+returns the same numbers. torch_tools/profile_train.py and
+torch_tools/profile_eval.py use it and `category` / `device_us`. Needs one
+CUDA card. A `generate` call's profile is a benchmark cell's traced run:
 
-For each frontend named (both by default) this builds chip_smoke.py's
-full-width CATER-256x256 model (B=2, T=8, bf16, seeded random weights;
-`factorized` is the default configuration), makes 2 warm-up
-`inference.generate` calls, times 5 unprofiled calls, each between two
-`torch.cuda.synchronize()`, then traces 3 calls with `torch.profiler`.
-It prints, per call: device kernel time by category, the count of device
-kernels and of aten ops (all levels), and the device-busy share (kernel
-time over the unprofiled calls' median; the profiler's own overhead inflates
-the profiled calls' host time). Then the 12 largest kernels, and one JSON
-line with the same numbers. Needs one CUDA card.
+    python3 benchmark/run.py --workload cater256_factorized.gen_b16 \
+        --seed <n> --seconds <s> --trace 1
 """
 
 from __future__ import annotations
 
-import json
-import os
 import re
 import statistics
-import subprocess
-import sys
 import time
 from collections import defaultdict
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
-import chip_smoke as cs  # noqa: E402
-from ag2video_torch import Config, get_vocab  # noqa: E402
-from ag2video_torch.inference import generate, make_inputs  # noqa: E402
-from ag2video_torch.models import AG2VideoModel  # noqa: E402
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 WARMUP, UNPROFILED, PROFILED = 2, 5, 3
 # First match wins; names are those of cuDNN, cuBLAS / CUTLASS and
@@ -123,35 +110,3 @@ def profile_calls(fn, label: str) -> dict:
     for name, ms, n in out["top_kernels"]:
         print(f"    {ms:8.3f} {n:6.0f}  {name}")
     return out
-
-
-def profile_frontend(factorized: bool) -> dict:
-    vocab = get_vocab("cater")
-    cfg = Config(dataset="cater", factorized_frontend=factorized,
-                 **cs.FULL).derive(vocab)
-    B, T = 2, cfg.frames_per_action
-    batch = make_inputs(cfg, vocab, B, T, seed=0)
-    model = AG2VideoModel(cfg, vocab)
-    frontend = "factorized" if factorized else "dense"
-    out = profile_calls(lambda: generate(model, batch),
-                        f"{frontend} frontend B={B} T={T} bf16")
-    out["frontend"] = frontend
-    return out
-
-
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_generate: needs a CUDA card")
-    names = argv or ["factorized", "dense"]
-    if set(names) - {"factorized", "dense"}:
-        raise SystemExit(__doc__)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    results = [profile_frontend(n == "factorized") for n in names]
-    print(json.dumps({"profiles": results}))
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
